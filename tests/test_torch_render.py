@@ -1,0 +1,213 @@
+"""The slice as a whole: the port's ``Renderer`` against the JAX package's.
+
+Both render the same scene (crossed over through ``interop``) at 32x32,
+Sobol, max_depth 3.  The JAX package uses ``AccelType.BRUTE`` (its CPU
+``AUTO`` choice at these sizes); the port runs its blocked intersector with
+the kernels' plain versions.  Sobol streams, the jitter and the pixel order
+are bit-equal, so every path makes the same decisions unless a float32
+last-bit difference flips one.  Tolerances:
+
+- after 1 spp, at least 99% of pixels agree to rtol 1e-3 / atol 1e-4 (a
+  flipped decision changes a whole pixel, so this is a share, not a bound);
+- after 16 spp, the mean radiance agrees within 1%.
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import mcrt_tpu
+from mcrt_tpu.config import AccelType as JAccelType
+from mcrt_tpu.config import IntegratorConfig as JIntegratorConfig
+from mcrt_tpu.config import SamplerConfig as JSamplerConfig
+from mcrt_tpu.config import SamplerType as JSamplerType
+from mcrt_tpu.scene import builders as jb
+from mcrt_tpu_torch import Renderer, interop
+from mcrt_tpu_torch.config import (AccelType, BuilderType, BVHConfig, DenoiseConfig,
+                                   IntegratorConfig, IntegratorType, RenderConfig,
+                                   SamplerConfig, SamplerType)
+from mcrt_tpu_torch.scene import builders as tbuild
+from tests.test_torch_blocked import port_scene
+
+# The tier-1 run spreads test files over several worker processes on a few
+# cores: one torch thread per process keeps OpenMP from oversubscribing
+# them (measured 20x slower runs otherwise).
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SIZE, DEPTH, SPP = 32, 3, 16
+MIN_AGREE = 0.99
+
+
+def _camera(jcam):
+    leaves, _ = jax.tree_util.tree_flatten_with_path(jcam)
+    return interop.camera_from_numpy(
+        {jax.tree_util.keystr(p).lstrip("."): np.asarray(v) for p, v in leaves})
+
+
+def _render_both(name, size=SIZE, spp=SPP, **integrator):
+    """(port images, jax images) after 1 spp and after ``spp``."""
+    jscene, jcam = getattr(jb, name)()
+    jcfg = mcrt_tpu.RenderConfig(
+        width=size, height=size, spp=1, accel=JAccelType.BRUTE,
+        sampler=JSamplerConfig(type=JSamplerType.SOBOL),
+        integrator=JIntegratorConfig(max_depth=DEPTH, **integrator))
+    tcfg = RenderConfig(width=size, height=size, spp=1,
+                        sampler=SamplerConfig(type=SamplerType.SOBOL),
+                        integrator=IntegratorConfig(max_depth=DEPTH, **integrator))
+    jr = mcrt_tpu.Renderer(jscene, jcam, jcfg)
+    tr = Renderer(port_scene(jscene), _camera(jcam), tcfg, device="cpu")
+    out = []
+    for r, as_np in ((tr, lambda a: a.numpy()), (jr, np.asarray)):
+        first = as_np(r.render())
+        r.step(spp - 1)
+        out.append((first, as_np(r.display_image())))
+    return out
+
+
+def _agreement(a, b):
+    return np.isclose(a, b, rtol=1e-3, atol=1e-4).all(axis=-1).mean()
+
+
+@pytest.fixture(scope="module", params=["cornell_box", "glass_gallery"])
+def renders(request):
+    return request.param, _render_both(request.param)
+
+
+def test_one_spp_agrees_per_pixel(renders):
+    name, ((t1, _), (j1, _)) = renders
+    assert t1.shape == j1.shape == (SIZE, SIZE, 3)
+    share = _agreement(t1, j1)
+    print(f"{name}: 1 spp per-pixel mismatch share {1.0 - share:.5f}")
+    assert share >= MIN_AGREE
+    assert np.isfinite(t1).all() and t1.mean() > 0.0
+
+
+def test_sixteen_spp_mean_radiance_within_one_percent(renders):
+    name, ((_, t16), (_, j16)) = renders
+    print(f"{name}: {SPP} spp mean {t16.mean():.6f} (jax {j16.mean():.6f}), "
+          f"per-pixel mismatch share {1.0 - _agreement(t16, j16):.5f}")
+    assert abs(t16.mean() - j16.mean()) <= 0.01 * j16.mean()
+
+
+def test_mis_and_russian_roulette_agree():
+    ((t1, t16), (j1, j16)), = [_render_both("cornell_box", size=16, spp=4, use_mis=True,
+                                            rr_start_depth=1)]
+    assert _agreement(t1, j1) >= MIN_AGREE
+    assert abs(t16.mean() - j16.mean()) <= 0.01 * j16.mean()
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "glass_gallery"])
+def test_port_builders_match_interop_scene(name):
+    """The port's own builders give the scene and camera the JAX package
+    builds (so ``chip_smoke.py``, which has no JAX, renders the same)."""
+    jscene, jcam = getattr(jb, name)()
+    crossed, cam = port_scene(jscene), _camera(jcam)
+    own, own_cam = getattr(tbuild, name)()
+    for group in ("geometry", "materials", "lights"):
+        for field, v in vars(getattr(crossed, group)).items():
+            if isinstance(v, torch.Tensor):
+                torch.testing.assert_close(getattr(getattr(own, group), field), v,
+                                           rtol=0, atol=0, msg=f"{group}.{field}")
+    for field, v in vars(cam).items():
+        torch.testing.assert_close(getattr(own_cam, field), v, rtol=1e-6, atol=1e-6)
+
+
+def _jax_sphere_field(subdiv):
+    """``sphere_field`` written with the JAX package's builders."""
+    sb = jb.SceneBuffers()
+    fp, fi = jb.quad([-5.0, 0, 5.0], [5.0, 0, 5.0], [5.0, 0, -5.0], [-5.0, 0, -5.0])
+    sb.add_mesh(fp, fi, 0)
+    unit_p, unit_i, unit_n = jb.icosphere((0.0, 0.0, 0.0), 0.6, subdiv=subdiv)
+    for k in range(12):
+        center = np.asarray([(k % 4 - 1.5) * 1.6, 0.6, (k // 4 - 1.0) * 1.6], np.float32)
+        sb.add_mesh(unit_p + center, unit_i, 1 + k % 3, normals=unit_n)
+    lp, li = jb.quad([-1.5, 4.0, -1.5], [1.5, 4.0, -1.5], [1.5, 4.0, 1.5], [-1.5, 4.0, 1.5])
+    light_shape = sb.add_mesh(lp, li, 4, light_id=0)
+    positions, normals, uvs, indices, face_shape, shape_mat, shape_light = sb.concat()
+    lights = jb.make_lights([{"type": jb.LIGHT_MESH, "intensity": (14.0, 13.0, 12.0),
+                              "shape": light_shape}], positions, indices, face_shape)
+    mats = [jb.UberMaterial(**vars(mat)) for mat in tbuild.GALLERY_MATERIALS]
+    return jb.build_scene(positions, normals, uvs, indices, face_shape, shape_mat, mats,
+                          lights=lights, shape_light=shape_light)
+
+
+def test_sphere_field_matches_jax_builders_and_renders():
+    """The main-path stand-in scene at subdiv 1 (964 triangles; 245,764 at
+    the default subdiv 5) equals the same scene built with the JAX package's
+    builders, and the port renders it as the JAX package does (16x16, 1 spp,
+    at least 99% of pixels within rtol 1e-3 / atol 1e-4)."""
+    jscene = _jax_sphere_field(1)
+    own, cam = tbuild.sphere_field(subdiv=1)
+    assert int(own.geometry.face_valid.sum()) == 12 * 20 * 4 + 4
+    crossed = port_scene(jscene)
+    for group in ("geometry", "materials", "lights"):
+        for field, v in vars(getattr(crossed, group)).items():
+            if isinstance(v, torch.Tensor):
+                torch.testing.assert_close(getattr(getattr(own, group), field), v,
+                                           rtol=0, atol=0, msg=f"{group}.{field}")
+    jcam = jb.PinholeCamera.look_at(eye=(0.0, 3.2, 7.5), target=(0.0, 0.5, 0.0),
+                                    fov_deg=45.0, aspect=1.0)
+    jimg = np.asarray(mcrt_tpu.Renderer(jscene, jcam, mcrt_tpu.RenderConfig(
+        width=16, height=16, spp=1, accel=JAccelType.BRUTE,
+        sampler=JSamplerConfig(type=JSamplerType.SOBOL),
+        integrator=JIntegratorConfig(max_depth=DEPTH))).render())
+    timg = Renderer(own, cam, RenderConfig(
+        width=16, height=16, spp=1, sampler=SamplerConfig(type=SamplerType.SOBOL),
+        integrator=IntegratorConfig(max_depth=DEPTH))).render().numpy()
+    assert _agreement(timg, jimg) >= MIN_AGREE and timg.mean() > 0.0
+
+
+def test_port_imports_and_renders_without_jax():
+    """``import mcrt_tpu_torch`` (every module) succeeds with jax, flax and
+    the JAX package blocked, and a tiny render runs."""
+    code = "\n".join([
+        "import sys, pkgutil, importlib",
+        "for name in ('jax', 'jaxlib', 'flax', 'mcrt_tpu'):",
+        "    sys.modules[name] = None",
+        "import mcrt_tpu_torch",
+        "for m in pkgutil.walk_packages(mcrt_tpu_torch.__path__, 'mcrt_tpu_torch.'):",
+        "    importlib.import_module(m.name)",
+        "from mcrt_tpu_torch import Renderer, RenderConfig",
+        "from mcrt_tpu_torch.scene.builders import cornell_box",
+        "img = Renderer(*cornell_box(), RenderConfig(width=8, height=8, spp=1),",
+        "               device='cpu').render()",
+        "assert img.shape == (8, 8, 3) and bool(img.isfinite().all()), img",
+        "print('ok', float(img.mean()))",
+    ])
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("ok")
+
+
+def test_progressive_controls():
+    """``stop_at_spp`` pauses the render, ``update_camera`` resets it."""
+    scene, cam = tbuild.cornell_box()
+    r = Renderer(scene, cam, RenderConfig(width=8, height=8, stop_at_spp=3), device="cpu")
+    r.step(5)
+    assert r.accum.frame == 3 and r.stopped()
+    moved = cam.replace(position=cam.position + 0.1)
+    r.update_camera(moved)
+    assert r.accum.frame == 0 and float(r.accum.weight.sum()) == 0.0
+    assert torch.equal(r.camera.position, moved.position)
+    img = r.render(2)
+    assert r.accum.frame == 2 and bool(torch.isfinite(img).all())
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(integrator=IntegratorConfig(type=IntegratorType.BDPT)), "BDPT"),
+    (dict(accel=AccelType.TWO_LEVEL), "two-level"),
+    (dict(accel=AccelType.BRUTE), "not ported"),
+    (dict(accel=AccelType.LBVH), "not ported"),
+    (dict(bvh=BVHConfig(builder=BuilderType.SBVH)), "SBVH"),
+    (dict(denoise=DenoiseConfig(enabled=True)), "denoise"),
+])
+def test_unported_options_raise(change, match):
+    scene, cam = tbuild.cornell_box()
+    with pytest.raises(NotImplementedError, match=match):
+        Renderer(scene, cam, RenderConfig(width=8, height=8, **change)).render(1)
