@@ -7,32 +7,52 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and exits nonzero; nothing is caught):
 
-0. Set-up: requires ``torch.cuda.is_available()``; builds the blocked
-   intersector kernels K1-K3 from ``mcrt_tpu_torch/csrc`` with nvcc; prints
-   the card's name and power limit as nvidia-smi reports them.
-1. Kernels: on a ~245k-triangle scene, runs K1 cull, K2 closest hit and K3
-   any hit against their plain PyTorch versions on the card, on a 512x512
-   wavefront of primary rays and one of random bounce rays, and times both.
-   K1 keys must be equal, K2 hit flags and slots equal and t within rtol
-   1e-5 where both hit, K3 flags equal: the kernels compute the plain
-   versions' formulas without fused multiply-add, in the same order.  The
-   share of differing rays is printed as a diagnostic.
-2. Render parity: ``glass_gallery`` at 64x64, 1 spp, Sobol, max_depth 3,
-   once on the card (kernels) and once on the CPU (plain versions) with the
-   same port code; at least 99% of pixels must agree to rtol 1e-3 / atol
-   1e-4.
-3. Main path: ``Renderer`` on the 245k-triangle scene at 512x512, 8 bounces,
-   Sobol, SAH blocks, for a few progressive frames.  The accel must have
-   been built by the SAH builder, the image must be finite with a positive
-   mean, every kernel's launch counter must have moved during this phase,
-   and a frame run under torch's CUDA sync debug mode must make no
-   synchronizing call (the host never waits for the card inside a frame).
-   Prints ms per spp and rays/s (closest plus shadow rays actually traced).
+0. Set-up: requires ``torch.cuda.is_available()``; builds the intersector
+   kernels K1-K7 from ``mcrt_tpu_torch/csrc`` with nvcc (one process per
+   source, started together); prints the card's name and power limit as
+   nvidia-smi reports them.
+1. Kernels, each against its plain PyTorch version on the card, on a
+   512x512 wavefront of primary rays and one of random bounce rays, timed
+   both ways, with the kernel's bound (below) printed beside its time:
+   K1 cull, K2 closest hit and K3 any hit on ``sphere_field`` (~245k
+   triangles); K4 and K5 (dense) on ``textured_hall``; K6 and K7
+   (two-level) behind K1 over pair boxes on ``sphere_field_instanced``.
+   K1 keys must be equal; closest-hit flags, slots (and K6 instances)
+   equal and t within rtol 1e-5 where both hit; any-hit flags equal: the
+   kernels compute the plain versions' formulas without fused
+   multiply-add, in the same order.  The share of differing rays is
+   printed as a diagnostic.
+2. Render parity: ``glass_gallery``, ``textured_hall`` and
+   ``instanced_boxes`` at 64x64, 1 spp, Sobol, max_depth 3, once on the
+   card (kernels) and once on the CPU (plain versions) with the same port
+   code; at least 99% of pixels must agree to rtol 1e-3 / atol 1e-4.
+3. Main paths through ``Renderer`` at 512x512, 8 bounces, Sobol, SAH
+   blocks, for a few progressive frames each, with the launch counters set
+   to 0 just before and read just after: ``sphere_field`` (must launch
+   K1-K3), ``textured_hall`` (K4/K5, and not K1-K3) and
+   ``sphere_field_instanced`` (K1, K6, K7, and not K2-K5).  Each image must
+   be finite with a positive mean, a frame run under torch's CUDA sync
+   debug mode must make no synchronizing call, and the SAH builder must
+   have run.  The instanced image's mean must agree with the baked
+   ``sphere_field`` image's within 1%: both take the same Sobol sample
+   streams over the same content, so only paths that float rounding of
+   the instance transforms flips can differ.  Each prints ms per spp,
+   rays/s (closest plus shadow rays actually traced) and peak memory.
 
-The second-to-last stdout line is the per-kernel JSON record (``ms`` and
-``plain_ms`` there are the bounce wavefront's, the shape of seven of the
-main path's eight bounces; the log lines give both wavefronts), the last
-one ``{"ok": true, "device": {...}}``.
+A kernel's bound is the least time the card could take for the work these
+inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
+float32 outside the tensor cores) and its bytes (each input read once,
+each output written once) over 3.35 TB/s.  Operations: 25 a slab test,
+54 a Moller-Trumbore test, 48 a slot staged into world space (K6/K7); the
+tests are counted from the plain versions' loops (``cull_tests``,
+``walk_tests``, ``dense_tests``).  No single PyTorch call computes a
+ray-triangle traversal, so ``library_ms`` is null for every kernel.
+
+The second-to-last stdout line is the per-kernel JSON record (``ms``,
+``plain_ms`` and ``bound_ms`` there are the bounce wavefront's, the shape
+of seven of a main path's eight bounces; ``launches`` are the counts of
+the main path that runs the kernel; the log lines give both wavefronts),
+the last one ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,16 +64,24 @@ import time
 
 WIDTH = HEIGHT = 512
 MAX_DEPTH = 8
-MAIN_FRAMES = 4  # timed progressive frames of the main path
+MAIN_FRAMES = 4  # timed progressive frames of each main path
 KERNEL_REPS = 5  # timed calls per kernel (median reported)
 PLAIN_REPS = 2
 PARITY_MIN_SHARE = 0.99
-REPLACES = {
-    "K1": "mcrt_tpu/accel/pallas_blocked.py:551",  # _cull_kernel
-    "K2": "mcrt_tpu/accel/pallas_blocked.py:733",  # _closest_kernel
-    "K3": "mcrt_tpu/accel/pallas_blocked.py:798",  # _occluded_kernel
+INSTANCED_MEAN_RTOL = 0.01
+PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+OPS_SLAB, OPS_MT, OPS_STAGE = 25, 54, 48
+KERNELS = {  # id: (name, source, the TPU kernel it replaces)
+    "K1": ("cull", "mcrt_tpu_torch/csrc/blocked.cu", "mcrt_tpu/accel/pallas_blocked.py:551"),
+    "K2": ("closest", "mcrt_tpu_torch/csrc/blocked.cu", "mcrt_tpu/accel/pallas_blocked.py:733"),
+    "K3": ("occluded", "mcrt_tpu_torch/csrc/blocked.cu", "mcrt_tpu/accel/pallas_blocked.py:798"),
+    "K4": ("dense_closest", "mcrt_tpu_torch/csrc/dense.cu",
+           "mcrt_tpu/accel/pallas_blocked.py:859"),
+    "K5": ("dense_any", "mcrt_tpu_torch/csrc/dense.cu", "mcrt_tpu/accel/pallas_blocked.py:879"),
+    "K6": ("closest2", "mcrt_tpu_torch/csrc/two_level.cu", "mcrt_tpu/accel/two_level.py:423"),
+    "K7": ("occluded2", "mcrt_tpu_torch/csrc/two_level.cu", "mcrt_tpu/accel/two_level.py:491"),
 }
-NAMES = {"K1": "cull", "K2": "closest", "K3": "occluded"}
 
 
 def log(msg: str):
@@ -86,13 +114,22 @@ def timed(fn, reps: int):
     return statistics.median(times), times, out
 
 
-def wavefronts(scene, camera, accel, device):
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: int, moved: int):
+    """(bound ms, "operations" or "bytes")."""
+    ops_ms, bytes_ms = ops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def wavefronts(camera, intersect, device):
     """A 512x512 wavefront of primary rays (Morton pixel order, as the
     renderer traces them) and one of random bounce rays leaving the primary
     hits in uniformly random directions."""
     import torch
 
-    from mcrt_tpu_torch.accel.blocked import intersect_blocked
     from mcrt_tpu_torch.camera.pinhole import pixel_uv
     from mcrt_tpu_torch.core.types import Rays
     from mcrt_tpu_torch.renderer import morton_pixel_order
@@ -101,7 +138,7 @@ def wavefronts(scene, camera, accel, device):
     uv = pixel_uv(WIDTH, HEIGHT, device=device)[torch.as_tensor(order, device=device).long()]
     o, d = camera.generate_rays(uv)
     primary = Rays.make(o.contiguous(), d)
-    hit = intersect_blocked(scene.geometry, accel, primary)
+    hit = intersect(primary)
     g = torch.Generator(device=device)
     g.manual_seed(1234)
     n = primary.n
@@ -113,97 +150,217 @@ def wavefronts(scene, camera, accel, device):
     return {"primary": primary, "bounce": bounce}
 
 
-def kernel_phase(scene, camera, accel, device):
+class KernelResults:
+    """Per kernel: each wavefront's times and bound, and the largest error
+    against the plain version."""
+
+    def __init__(self):
+        self.rows = {k: {"ms": [], "plain_ms": [], "bound": [], "max_abs_err": 0.0}
+                     for k in KERNELS}
+
+    def record(self, k, wf, ms, plain_ms, err, ops, moved):
+        r = self.rows[k]
+        b_ms, by = bound(ops, moved)
+        r["ms"].append(ms)
+        r["plain_ms"].append(plain_ms)
+        r["bound"].append((b_ms, by))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        log(f"[kernels:{wf}] {k} {KERNELS[k][0]} {ms:.3f} ms (plain {plain_ms:.3f} ms), "
+            f"bound {b_ms:.4f} ms by {by} ({ops:.4e} operations, {moved} bytes)")
+
+
+def check_closest(k, wf, kern, plain):
+    """Closest-hit outputs (t, slot[, inst]) of a kernel and its plain
+    version: flags, slots and instances equal, t within rtol 1e-5."""
+    import torch
+
+    (t_k, s_k, *i_k), (t_p, s_p, *i_p) = kern, plain
+    hk, hp = s_k >= 0, s_p >= 0
+    both = hk & hp
+    t_ok = torch.isclose(t_k, t_p, rtol=1e-5, atol=0.0) | ~both
+    bad = (hk != hp) | ~t_ok | (s_k != s_p)
+    for a, b in zip(i_k, i_p):
+        bad = bad | (a != b)
+    share = bad.float().mean().item()
+    err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
+    log(f"[kernels:{wf}] {k}: {int(hk.sum())} hits, differing share {share:.2e}, "
+        f"max |dt| {err:.3e}")
+    if bad.any():
+        raise AssertionError(f"{k} differs from the plain version ({wf}): share {share:.2e}")
+    return err
+
+
+def check_any(k, wf, b_k, b_p):
+    share = (b_k != b_p).float().mean().item()
+    log(f"[kernels:{wf}] {k}: {int(b_k.sum())} blocked, differing share {share:.2e}")
+    if not bool((b_k == b_p).all()):
+        raise AssertionError(f"{k} differs from the plain version ({wf}): share {share:.2e}")
+    return (b_k - b_p).abs().max().item()
+
+
+def cull_and_check(res, wf, packed, chunk, boxes, k_id="K1"):
+    """K1 against its plain version; returns the visit lists."""
     import torch
 
     from mcrt_tpu_torch.accel import blocked, kernels
 
-    results = {k: {"ms": [], "plain_ms": [], "max_abs_err": 0.0} for k in NAMES}
+    tile = blocked.TILE
+    ms, _, keys = timed(lambda: kernels.cull(packed, chunk, boxes, tile), KERNEL_REPS)
+    pms, _, keys_p = timed(lambda: blocked.cull_plain(packed, chunk, boxes, tile), PLAIN_REPS)
+    if not torch.equal(keys, keys_p):
+        bad = (keys != keys_p).float().mean().item()
+        raise AssertionError(f"K1 keys differ from the plain version ({wf}): share {bad}")
+    entered = keys < 0.5 * blocked.BIG
+    err = (keys[entered] - keys_p[entered]).abs().max().item() if entered.any() else 0.0
+    ops = blocked.cull_tests(packed, chunk, boxes, tile) * OPS_SLAB
+    if k_id:
+        res.record(k_id, wf, ms, pms, err, ops, nbytes(packed, chunk, boxes, keys))
+    else:
+        log(f"[kernels:{wf}] K1 over pair boxes {ms:.3f} ms (plain {pms:.3f} ms), keys equal")
+    counts, lists, tn_sorted = blocked.lists_from_keys(keys)
+    log(f"[kernels:{wf}] {int((packed[7] > packed[6]).sum())} live rays, "
+        f"{int(counts.sum())} visits over {counts.numel()} tiles")
+    return counts, lists, tn_sorted
+
+
+def visit_list_kernels(res, device):
+    """K1-K3 on the visit-list path's scene."""
+    from mcrt_tpu_torch.accel import blocked, kernels
+    from mcrt_tpu_torch.accel.blocked import build_blocked, intersect_blocked
+    from mcrt_tpu_torch.scene.builders import sphere_field
+
+    t0 = time.perf_counter()
+    scene, camera = sphere_field(device=device)
+    accel = build_blocked(scene.geometry)
+    log(f"[scene] sphere_field: {int(scene.geometry.face_valid.sum())} triangles, "
+        f"{accel.num_blocks} blocks, builder {accel.builder}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
     tile, group = blocked.TILE, blocked.GROUP
-    for name, rays in wavefronts(scene, camera, accel, device).items():
+    rows = blocked.flat_rows(accel.tri)
+    waves = wavefronts(camera, lambda r: intersect_blocked(scene.geometry, accel, r), device)
+    for wf, rays in waves.items():
         packed, _ = blocked._sorted_table(rays, accel, True)
-        live = int(rays.active.sum())
-        # K1
-        ms, _, keys = timed(lambda: kernels.cull(packed, accel.chunk_aabb, accel.aabb, tile),
-                            KERNEL_REPS)
-        pms, _, keys_p = timed(lambda: blocked.cull_plain(packed, accel.chunk_aabb,
-                                                          accel.aabb, tile), PLAIN_REPS)
-        if not torch.equal(keys, keys_p):
-            bad = (keys != keys_p).float().mean().item()
-            raise AssertionError(f"K1 keys differ from the plain version ({name}): share {bad}")
-        entered = keys < 0.5 * blocked.BIG
-        err = (keys[entered] - keys_p[entered]).abs().max().item() if entered.any() else 0.0
-        _record(results["K1"], ms, pms, err)
-        counts, lists, tn_sorted = blocked.lists_from_keys(keys)
-        log(f"[kernels:{name}] {live} live rays, {int(counts.sum())} visits "
-            f"over {counts.numel()} tiles; K1 {ms:.3f} ms (plain {pms:.3f} ms), keys equal")
-        # K2
-        ms, _, (t_k, s_k) = timed(lambda: kernels.closest(
-            counts, packed, lists, tn_sorted, accel.tri, tile, group), KERNEL_REPS)
-        pms, _, (t_p, s_p) = timed(lambda: blocked.closest_plain(
-            counts, packed, lists, tn_sorted, accel.tri, tile, group), PLAIN_REPS)
-        hk, hp = s_k >= 0, s_p >= 0
-        both = hk & hp
-        t_ok = torch.isclose(t_k, t_p, rtol=1e-5, atol=0.0) | ~both
-        share = ((hk != hp) | ~t_ok | (s_k != s_p)).float().mean().item()
-        err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
-        log(f"[kernels:{name}] K2 {ms:.3f} ms (plain {pms:.3f} ms): {int(hk.sum())} hits, "
-            f"differing share {share:.2e}, max |dt| {err:.3e}")
-        if not (torch.equal(hk, hp) and torch.equal(s_k, s_p) and bool(t_ok.all())):
-            raise AssertionError(f"K2 differs from the plain version ({name}): "
-                                 f"share {share:.2e}")
-        _record(results["K2"], ms, pms, err)
-        # K3
-        ms, _, b_k = timed(lambda: kernels.occluded(
-            counts, packed, lists, accel.tri, tile, group), KERNEL_REPS)
-        pms, _, b_p = timed(lambda: blocked.occluded_plain(
-            counts, packed, lists, accel.tri, tile, group), PLAIN_REPS)
-        share = (b_k != b_p).float().mean().item()
-        log(f"[kernels:{name}] K3 {ms:.3f} ms (plain {pms:.3f} ms): "
-            f"{int(b_k.sum())} blocked, differing share {share:.2e}")
-        if not torch.equal(b_k, b_p):
-            raise AssertionError(f"K3 differs from the plain version ({name}): "
-                                 f"share {share:.2e}")
-        _record(results["K3"], ms, pms, (b_k - b_p).abs().max().item())
-    return results
+        counts, lists, tn = cull_and_check(res, wf, packed, accel.chunk_aabb, accel.aabb)
+        ms, _, out_k = timed(lambda: kernels.closest(counts, packed, lists, tn, accel.tri,
+                                                     tile, group), KERNEL_REPS)
+        pms, _, out_p = timed(lambda: blocked.closest_plain(counts, packed, lists, tn,
+                                                            accel.tri, tile, group), PLAIN_REPS)
+        err = check_closest("K2", wf, out_k, out_p)
+        tests, _ = blocked.walk_tests(counts, packed, lists, tn, rows, tile, group, True)
+        res.record("K2", wf, ms, pms, err, tests * OPS_MT,
+                   nbytes(counts, packed, lists, tn, accel.tri, *out_k))
+        ms, _, b_k = timed(lambda: kernels.occluded(counts, packed, lists, accel.tri, tile,
+                                                    group), KERNEL_REPS)
+        pms, _, b_p = timed(lambda: blocked.occluded_plain(counts, packed, lists, accel.tri,
+                                                           tile, group), PLAIN_REPS)
+        err = check_any("K3", wf, b_k, b_p)
+        tests, _ = blocked.walk_tests(counts, packed, lists, None, rows, tile, group, False)
+        res.record("K3", wf, ms, pms, err, tests * OPS_MT,
+                   nbytes(counts, packed, lists, accel.tri, b_k))
+    return scene, camera
 
 
-def _record(r, ms, plain_ms, err):
-    r["ms"].append(ms)
-    r["plain_ms"].append(plain_ms)
-    r["max_abs_err"] = max(r["max_abs_err"], err)
+def dense_kernels(res, device):
+    """K4/K5 on the dense path's scene."""
+    from mcrt_tpu_torch.accel import blocked, kernels
+    from mcrt_tpu_torch.accel.blocked import build_blocked, intersect_blocked
+    from mcrt_tpu_torch.scene.builders import textured_hall
+
+    scene, camera = textured_hall(device=device)
+    accel = build_blocked(scene.geometry)
+    log(f"[scene] textured_hall: {int(scene.geometry.face_valid.sum())} triangles, "
+        f"{accel.num_blocks} blocks ({accel.num_slots} slots), {scene.textures.num} textures")
+    if accel.num_blocks > blocked.DENSE_BLOCKS:
+        raise AssertionError("textured_hall does not take the dense path")
+    tri = accel.tri
+    waves = wavefronts(camera, lambda r: intersect_blocked(scene.geometry, accel, r), device)
+    for wf, rays in waves.items():
+        packed, _ = blocked._sorted_table(rays, accel, False)
+        ms, _, out_k = timed(lambda: kernels.dense_closest(packed, tri), KERNEL_REPS)
+        pms, _, out_p = timed(lambda: blocked.dense_closest_plain(packed, tri), PLAIN_REPS)
+        err = check_closest("K4", wf, out_k, out_p)
+        res.record("K4", wf, ms, pms, err, blocked.dense_tests(packed, tri, True) * OPS_MT,
+                   nbytes(packed, tri, *out_k))
+        ms, _, b_k = timed(lambda: kernels.dense_any(packed, tri), KERNEL_REPS)
+        pms, _, b_p = timed(lambda: blocked.dense_any_plain(packed, tri), PLAIN_REPS)
+        err = check_any("K5", wf, b_k, b_p)
+        res.record("K5", wf, ms, pms, err, blocked.dense_tests(packed, tri, False) * OPS_MT,
+                   nbytes(packed, tri, b_k))
 
 
-def parity_phase():
+def two_level_kernels(res, device):
+    """K6/K7 (behind K1 over the pair boxes) on the instanced scene."""
+    from mcrt_tpu_torch.accel import blocked, kernels
+    from mcrt_tpu_torch.accel import two_level as tl
+    from mcrt_tpu_torch.scene.builders import sphere_field_instanced
+
+    t0 = time.perf_counter()
+    scene, camera = sphere_field_instanced(device=device)
+    accel = tl.build_two_level_scene(scene.geometry, scene.shapes.to_world, scene.instances)
+    log(f"[scene] sphere_field_instanced: {int(scene.geometry.face_valid.sum())} source "
+        f"triangles, {scene.instances.num} instances, {accel.num_instances} two-level "
+        f"instances, {accel.blas.num_blocks} BLAS blocks, {accel.num_pairs} pairs, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tile, group = blocked.TILE, blocked.GROUP
+    args = (accel.blas.tri, accel.pair_code, accel.tw_rows)
+    rows = tl.pair_rows(*args)
+    waves = wavefronts(camera, lambda r: tl.intersect_two_level(scene.geometry, accel, r),
+                       device)
+    for wf, rays in waves.items():
+        packed, _ = blocked._sorted_table(rays, accel, True)
+        counts, lists, tn = cull_and_check(res, wf, packed, accel.pair_chunk, accel.pair_aabb,
+                                           k_id=None)
+        ms, _, out_k = timed(lambda: kernels.closest2(counts, packed, lists, tn, *args, tile,
+                                                      group), KERNEL_REPS)
+        pms, _, out_p = timed(lambda: tl.closest2_plain(counts, packed, lists, tn, *args, tile,
+                                                        group), PLAIN_REPS)
+        err = check_closest("K6", wf, out_k, out_p)
+        tests, staged = blocked.walk_tests(counts, packed, lists, tn, rows, tile, group, True)
+        res.record("K6", wf, ms, pms, err, tests * OPS_MT + staged * OPS_STAGE,
+                   nbytes(counts, packed, lists, tn, *args, *out_k))
+        ms, _, b_k = timed(lambda: kernels.occluded2(counts, packed, lists, *args, tile, group),
+                           KERNEL_REPS)
+        pms, _, b_p = timed(lambda: tl.occluded2_plain(counts, packed, lists, *args, tile,
+                                                       group), PLAIN_REPS)
+        err = check_any("K7", wf, b_k, b_p)
+        tests, staged = blocked.walk_tests(counts, packed, lists, None, rows, tile, group, False)
+        res.record("K7", wf, ms, pms, err, tests * OPS_MT + staged * OPS_STAGE,
+                   nbytes(counts, packed, lists, *args, b_k))
+
+
+def parity_phase(name: str):
     import torch
 
     from mcrt_tpu_torch import Renderer
     from mcrt_tpu_torch.config import (IntegratorConfig, RenderConfig,
                                        SamplerConfig, SamplerType)
-    from mcrt_tpu_torch.scene.builders import glass_gallery
+    from mcrt_tpu_torch.scene import builders
 
     cfg = RenderConfig(width=64, height=64, spp=1,
                        sampler=SamplerConfig(type=SamplerType.SOBOL),
                        integrator=IntegratorConfig(max_depth=3))
     images = {}
     for dev in ("cuda", "cpu"):
-        scene, camera = glass_gallery(device=dev)
+        scene, camera = getattr(builders, name)(device=dev)
         t0 = time.perf_counter()
         images[dev] = Renderer(scene, camera, cfg, device=dev).render().cpu()
         if dev == "cuda":
             torch.cuda.synchronize()
-        log(f"[parity] glass_gallery 64x64 on {dev}: {time.perf_counter() - t0:.2f} s")
+        log(f"[parity] {name} 64x64 on {dev}: {time.perf_counter() - t0:.2f} s")
     close = torch.isclose(images["cuda"], images["cpu"], rtol=1e-3, atol=1e-4).all(dim=-1)
     share = close.float().mean().item()
-    log(f"[parity] pixels agreeing (rtol 1e-3, atol 1e-4): {share:.4f} "
+    log(f"[parity] {name}: pixels agreeing (rtol 1e-3, atol 1e-4): {share:.4f} "
         f"(mismatch {1 - share:.4f}); means {images['cuda'].mean():.5f} / "
         f"{images['cpu'].mean():.5f}")
     if share < PARITY_MIN_SHARE:
-        raise AssertionError(f"CUDA-vs-CPU render parity {share:.4f} < {PARITY_MIN_SHARE}")
+        raise AssertionError(f"{name}: CUDA-vs-CPU render parity {share:.4f} < "
+                             f"{PARITY_MIN_SHARE}")
     return share
 
 
-def main_path_phase(scene, camera, device):
+def main_path_phase(label, scene, camera, device, expect, forbid):
+    """``Renderer`` on ``scene``: returns (launch counts, ms/spp, rays/s,
+    image mean)."""
     import torch
 
     from mcrt_tpu_torch import Renderer
@@ -216,13 +373,15 @@ def main_path_phase(scene, camera, device):
                        sampler=SamplerConfig(type=SamplerType.SOBOL),
                        bvh=BVHConfig(builder=BuilderType.SAH),
                        integrator=IntegratorConfig(max_depth=MAX_DEPTH))
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     renderer = Renderer(scene, camera, cfg, device=device)
-    builder = renderer.intersector.accel.builder
-    log(f"[main] accel build {time.perf_counter() - t0:.2f} s, builder {builder}, "
-        f"{renderer.intersector.accel.num_blocks} blocks")
-    if builder != "sah":
-        raise AssertionError(f"the SAH build did not run (builder {builder}): "
+    accel = renderer.intersector.accel
+    blocks = getattr(accel, "blas", accel)
+    log(f"[{label}] accel {type(accel).__name__} build {time.perf_counter() - t0:.2f} s, "
+        f"builder {blocks.builder}, {blocks.num_blocks} blocks")
+    if blocks.builder != "sah":
+        raise AssertionError(f"the SAH build did not run (builder {blocks.builder}): "
                              "the native library failed to build or load")
 
     kernels.reset_launch_counts()
@@ -247,27 +406,31 @@ def main_path_phase(scene, camera, device):
     sites = sync_sites(lambda: renderer.step(1))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    log(f"[main] synchronizing calls in one frame: {sum(sites.values())} "
+    log(f"[{label}] synchronizing calls in one frame: {sum(sites.values())} "
         + ", ".join(f"{site} x{n}" for site, n in sites.most_common()))
     if sites:
-        raise AssertionError(f"the frame waits for the card at {dict(sites)}")
+        raise AssertionError(f"{label}: the frame waits for the card at {dict(sites)}")
     img = renderer.display_image()
-    log(f"[main] counting/warm-up frame {warm[0]:.1f} ms; frames (ms): "
+    log(f"[{label}] counting/warm-up frame {warm[0]:.1f} ms; frames (ms): "
         + ", ".join(f"{t:.1f}" for t in frame_ms))
     mean = img.mean().item()
     if not bool(torch.isfinite(img).all()) or not mean > 0.0:
-        raise AssertionError(f"main-path image not finite/positive (mean {mean})")
+        raise AssertionError(f"{label}: image not finite/positive (mean {mean})")
     if tuple(img.shape) != (HEIGHT, WIDTH, 3):
-        raise AssertionError(f"main-path image shape {tuple(img.shape)}")
-    missing = [k for k, v in counts.items() if v == 0]
+        raise AssertionError(f"{label}: image shape {tuple(img.shape)}")
+    missing = [k for k in expect if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"{label}: kernels not launched on the main path: {missing}")
+    stray = [k for k in forbid if counts[k]]
+    if stray:
+        raise AssertionError(f"{label}: kernels of another path launched: {stray}")
     rays_s = rays_per_spp / (ms / 1e3)
-    log(f"[main] {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, sobol: {ms:.2f} ms/spp (median of "
+    log(f"[{label}] {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, sobol: {ms:.2f} ms/spp (median of "
         f"{MAIN_FRAMES}), {rays_per_spp} rays/spp, {rays_s:.4e} rays/s, "
         f"image mean {mean:.5f}, launches {counts}, "
-        f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
-    return counts, ms, rays_s
+        f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
+        f"card {card_line()}")
+    return counts, ms, rays_s, mean
 
 
 def main() -> int:
@@ -278,8 +441,7 @@ def main() -> int:
         return 2
     import mcrt_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from mcrt_tpu_torch.accel import kernels
-    from mcrt_tpu_torch.accel.blocked import build_blocked
-    from mcrt_tpu_torch.scene.builders import sphere_field
+    from mcrt_tpu_torch.scene.builders import sphere_field_instanced, textured_hall
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -293,24 +455,39 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
 
+    res = KernelResults()
     with torch.no_grad():
-        t0 = time.perf_counter()
-        scene, camera = sphere_field(device=device)
-        n_tris = int(scene.geometry.face_valid.sum())
-        accel = build_blocked(scene.geometry)
-        log(f"[scene] {n_tris} triangles, {accel.num_blocks} blocks, builder "
-            f"{accel.builder}, built in {time.perf_counter() - t0:.2f} s")
-        results = kernel_phase(scene, camera, accel, device)
-        parity_phase()
-        counts, ms_spp, rays_s = main_path_phase(scene, camera, device)
+        scene, camera = visit_list_kernels(res, device)
+        dense_kernels(res, device)
+        two_level_kernels(res, device)
+        for name in ("glass_gallery", "textured_hall", "instanced_boxes"):
+            parity_phase(name)
+        paths = {
+            "main": main_path_phase("main", scene, camera, device, ("K1", "K2", "K3"), ()),
+            "dense": main_path_phase("dense", *textured_hall(device=device), device,
+                                     ("K4", "K5"), ("K1", "K2", "K3")),
+            "instanced": main_path_phase("instanced", *sphere_field_instanced(device=device),
+                                         device, ("K1", "K6", "K7"), ("K2", "K3", "K4", "K5")),
+        }
+    baked, inst = paths["main"][3], paths["instanced"][3]
+    log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
+        f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")
+    if abs(inst - baked) > INSTANCED_MEAN_RTOL * baked:
+        raise AssertionError("the instanced render's mean departs from the baked render's")
 
-    kernel_rows = [{
-        "name": f"{k} {NAMES[k]}", "route": "cuda",
-        "source": "mcrt_tpu_torch/csrc/blocked.cu", "replaces": REPLACES[k],
-        "launches": counts[k], "max_abs_err": results[k]["max_abs_err"],
-        "ms": results[k]["ms"][-1], "plain_ms": results[k]["plain_ms"][-1],
-    } for k in NAMES]
-    log(f"[main] card: {card_line()}; {ms_spp:.2f} ms/spp, {rays_s:.4e} rays/s")
+    path_of = {"K1": "main", "K2": "main", "K3": "main", "K4": "dense", "K5": "dense",
+               "K6": "instanced", "K7": "instanced"}
+    kernel_rows = []
+    for k, (name, source, replaces) in KERNELS.items():
+        r = res.rows[k]
+        b_ms, by = r["bound"][-1]
+        kernel_rows.append({
+            "name": f"{k} {name}", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": paths[path_of[k]][0][k], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"][-1], "plain_ms": r["plain_ms"][-1], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None})
+    log("[paths] card: " + card_line() + "; " + "; ".join(
+        f"{label} {v[1]:.2f} ms/spp, {v[2]:.4e} rays/s" for label, v in paths.items()))
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,19 @@
 """Acceleration-structure registry (counterpart of ``mcrt_tpu/accel/__init__.py``).
 
 ``build_intersector`` builds the accel for a scene and binds the
-(closest-hit, any-hit) query pair.  The port has one engine so far, the
-blocked intersector: ``AccelType.AUTO`` and ``BLOCKED`` select it on every
-device.  On a CUDA device its queries launch the kernels K1-K3; on the CPU
-they run the kernels' plain PyTorch versions (the wrappers decide by the
-tensors' device).
+(closest-hit, any-hit) query pair.  The port has two engines:
+
+- the blocked intersector, under ``AccelType.AUTO`` and ``BLOCKED``: scenes
+  of at most ``blocked.DENSE_BLOCKS`` blocks take its dense path (kernels
+  K4/K5), larger ones its visit-list path (K1-K3);
+- the two-level intersector (K1 over pair boxes, then K6/K7), which
+  instanced scenes take under ``AUTO`` and ``TWO_LEVEL``; a scene without
+  instances under ``TWO_LEVEL`` renders as one free BLAS under an identity
+  instance.
+
+On a CUDA device the queries launch the kernels; on the CPU they run the
+kernels' plain PyTorch versions (the choice is made by the tensors'
+device).
 """
 from __future__ import annotations
 
@@ -15,7 +23,7 @@ import torch
 
 from ..config import AccelType, RenderConfig
 from ..core.types import Hit, Rays
-from ..scene.scene import Scene
+from ..scene.scene import Instances, Scene
 
 
 class Intersector(NamedTuple):
@@ -39,8 +47,18 @@ def blocked_intersector(acc) -> Intersector:
     )
 
 
+def two_level_intersector(acc) -> Intersector:
+    """Bind pair-list two-level query closures around an accel."""
+    from .two_level import intersect_two_level, occluded_two_level
+
+    return Intersector(
+        intersect=lambda s, r: intersect_two_level(s.geometry, acc, r),
+        occluded=lambda s, r: occluded_two_level(s.geometry, acc, r),
+        accel=acc,
+    )
+
+
 _NOT_PORTED = {
-    AccelType.TWO_LEVEL: "two-level K6/K7",
     AccelType.LBVH: "LBVH (Queue 1 item 17: retire from the port)",
     AccelType.BRUTE: "the brute-force oracle",
 }
@@ -49,9 +67,22 @@ _NOT_PORTED = {
 def build_intersector(scene: Scene, cfg: RenderConfig) -> Intersector:
     """Build the accel for ``scene`` and bind its query closures."""
     if scene.instances is not None:
-        raise NotImplementedError(
-            "instanced scenes need the two-level intersector, not ported yet "
-            "(ROADMAP, Queue 1: two-level with K6/K7)")
+        # every other accel sees only the source meshes' object-space faces
+        if cfg.accel not in (AccelType.AUTO, AccelType.TWO_LEVEL):
+            raise ValueError(
+                f"scene has instanced shapes; accel={cfg.accel.value!r} cannot "
+                "render them: use AccelType.AUTO or TWO_LEVEL")
+        instances = scene.instances
+    elif cfg.accel == AccelType.TWO_LEVEL:
+        empty = torch.zeros((0,), dtype=torch.int32)
+        instances = Instances(shape=empty, src_shape=empty)
+    else:
+        instances = None
+    if instances is not None:
+        from .two_level import build_two_level_scene
+
+        return two_level_intersector(build_two_level_scene(
+            scene.geometry, scene.shapes.to_world, instances, cfg.bvh))
     if cfg.accel in _NOT_PORTED:
         raise NotImplementedError(
             f"accel={cfg.accel.value!r} is not ported yet (ROADMAP: "

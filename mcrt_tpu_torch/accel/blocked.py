@@ -5,20 +5,25 @@
    SAH- or Morton-ordered into fixed 128-slot blocks, stored as the
    transposed (16, NT) p0/e1/e2 table, with one AABB per block
    (NaN-poisoned when empty) and one union AABB per 128-block cull chunk.
-2. **Cull** (kernel K1): per ray tile, the entry distance of every block
-   the tile enters (``BIG`` otherwise).
-3. **Sort** (torch): one packed-key sort per tile gives the front-to-back
-   visit list and per-visit entry distances.
-4. **Walk** (kernels K2 closest hit / K3 any hit): each tile tests its
-   list's blocks ``GROUP`` at a time with an early exit.
-5. **Resolve** (torch): barycentrics for each ray's single winning slot.
+2. **Dense path** (kernels K4 closest hit / K5 any hit) for scenes of at
+   most ``DENSE_BLOCKS`` blocks: no cull, no sort, every ray tests every
+   slot of the table.
+3. Otherwise the **visit-list path**: **cull** (kernel K1), per ray tile,
+   the entry distance of every block the tile enters (``BIG`` otherwise);
+   **sort** (torch), one packed-key sort per tile into the front-to-back
+   visit list; **walk** (kernels K2 closest hit / K3 any hit), each tile
+   tests its list's blocks ``GROUP`` at a time with an early exit.
+4. **Resolve** (torch): barycentrics for each ray's single winning slot.
 
-The three kernels are CUDA C++ (``csrc/blocked.cu``), launched through the
-wrappers in ``kernels.py``.  This module holds the glue and, beside each
-kernel, its plain PyTorch version (``cull_plain``, ``closest_plain``,
-``occluded_plain``).  ``_kernel_or_plain`` picks between them by the rays'
-device: the plain version only for CPU tensors, otherwise the kernel, whose
-wrapper launches on a CUDA tensor or raises.
+The kernels are CUDA C++ (``csrc/``), launched through the wrappers in
+``kernels.py``.  This module holds the glue and, beside each kernel, its
+plain PyTorch version (``cull_plain``, ``closest_plain``,
+``occluded_plain``, ``dense_closest_plain``, ``dense_any_plain``).
+``_kernel_or_plain`` picks between them by the rays' device: the plain
+version only for CPU tensors, otherwise the kernel, whose wrapper launches
+on a CUDA tensor or raises.  ``cull_tests``, ``walk_tests`` and
+``dense_tests`` count the work each kernel does on given inputs (slab and
+Moller-Trumbore tests), from which a run computes the kernel's bound.
 
 Intersection carries no gradient (the JAX package returns zero
 cotangents); callers run under ``torch.no_grad()``.
@@ -43,6 +48,7 @@ TILE = 128
 GROUP = 4
 BIG = 3.0e38
 PACKED_KEY_MAX_BLOCKS = 4096  # the block id must fit the key's low 12 bits
+DENSE_BLOCKS = 8  # scenes of at most this many blocks take the dense path
 
 
 @dataclass
@@ -357,25 +363,43 @@ def _mt(tri9, o, d, tmn, tmx, best_t):
     return t, hit
 
 
-def _walk_plain(counts, rays_packed, lists, tn_sorted, tri, tile, group,
-                closest: bool):
-    """Shared plain version of K2/K3: per tile, walk the visit list
-    ``group`` blocks per step, testing every ray of the tile, with the
-    kernels' loop condition; all tiles advance in lock-step."""
+def flat_rows(tri: torch.Tensor):
+    """The walk's group loader for a flat table: visit-list entries (A, G)
+    are block ids (clamped into the table, as the kernels do) -> the 9
+    triangle rows (A, G*128, 1), the slot ids (A, G*128) and no instance."""
+    nt_blocks = tri.shape[1] // BLOCK
+    lanes = torch.arange(BLOCK, device=tri.device)
+
+    def rows(ent):
+        cols = (ent.clamp(max=nt_blocks - 1)[:, :, None] * BLOCK + lanes).reshape(
+            ent.shape[0], -1)
+        return [tri[c][cols][:, :, None] for c in range(9)], cols, None
+
+    return rows
+
+
+def _walk_plain(counts, rays_packed, lists, tn_sorted, rows_of, tile, group,
+                closest: bool, tally: list | None = None):
+    """Shared plain version of K2/K3 (and, with another ``rows_of``, of the
+    two-level K6/K7): per tile, walk the visit list ``group`` entries per
+    step, testing every ray of the tile, with the kernels' loop condition;
+    all tiles advance in lock-step.  ``tally`` (a list) receives, per step,
+    the Moller-Trumbore tests the kernel runs (the rays that test: live for
+    K2, live and still unblocked for K3, times the group's slots) and the
+    slots it stages."""
     dev = rays_packed.device
     npad = rays_packed.shape[1]
     n_tiles = npad // tile
     nbpad = lists.shape[1]
-    nt_blocks = tri.shape[1] // BLOCK
     ox, oy, oz, dx, dy, dz, _, _, _, tmn, tmx = _ray_rows(
         rays_packed.reshape(8, n_tiles, 1, tile))
     groups = (counts.to(torch.int64) + group - 1) // group
     best_t = torch.full((n_tiles, 1, tile), BIG, dtype=torch.float32, device=dev)
     best_slot = torch.full((n_tiles, 1, tile), -1, dtype=torch.int32, device=dev)
+    best_inst = torch.full((n_tiles, 1, tile), -1, dtype=torch.int32, device=dev)
     blocked = torch.zeros((n_tiles, 1, tile), dtype=torch.bool, device=dev)
     live0 = tmx > tmn
     walking = groups > 0
-    lanes = torch.arange(BLOCK, device=dev)
     # bound the (tiles, group*128, tile) test matrix to ~2^25 elements
     step_tiles = max(1, (1 << 25) // (group * BLOCK * tile))
     k = 0
@@ -393,20 +417,25 @@ def _walk_plain(counts, rays_packed, lists, tn_sorted, tri, tile, group,
             go = (k < groups[rows]) & (live0[rows] & ~blocked[rows]).any(dim=2).squeeze(1)
         walking[rows] = go
         rows = rows[go]
+        if tally is not None:
+            testing = live0[rows] if closest else live0[rows] & ~blocked[rows]
+            tally.append((testing.sum() * group * BLOCK, rows.numel() * group * BLOCK))
         for s in range(0, rows.numel(), step_tiles):
             r = rows[s:s + step_tiles]
             e = torch.clamp(k * group + torch.arange(group, device=dev), max=nbpad - 1)
-            ent = lists[r][:, e].clamp(max=nt_blocks - 1).to(torch.int64)  # (A, G)
-            cols = (ent[:, :, None] * BLOCK + lanes).reshape(r.numel(), -1)
-            tri9 = [tri[c][cols][:, :, None] for c in range(9)]  # (A, G*128, 1)
+            tri9, cols, who = rows_of(lists[r][:, e].to(torch.int64))  # (A, G*128)
             o = (ox[r], oy[r], oz[r])
             d = (dx[r], dy[r], dz[r])
             if closest:
                 t, hit = _mt(tri9, o, d, tmn[r], tmx[r], best_t[r])
                 tnew, j = torch.where(hit, t, BIG).min(dim=1, keepdim=True)
                 better = tnew < best_t[r]
-                slot = torch.gather(cols, 1, j.squeeze(1)).to(torch.int32)[:, None, :]
+                j = j.squeeze(1)
+                slot = torch.gather(cols, 1, j).to(torch.int32)[:, None, :]
                 best_slot[r] = torch.where(better, slot, best_slot[r])
+                if who is not None:
+                    inst = torch.gather(who, 1, j).to(torch.int32)[:, None, :]
+                    best_inst[r] = torch.where(better, inst, best_inst[r])
                 best_t[r] = torch.where(better, tnew, best_t[r])
             else:
                 bt = torch.where(blocked[r], -BIG, BIG)
@@ -414,7 +443,7 @@ def _walk_plain(counts, rays_packed, lists, tn_sorted, tri, tile, group,
                 blocked[r] = blocked[r] | hit.any(dim=1, keepdim=True)
         k += 1
     if closest:
-        return best_t.reshape(-1), best_slot.reshape(-1)
+        return best_t.reshape(-1), best_slot.reshape(-1), best_inst.reshape(-1)
     return blocked.reshape(-1).to(torch.float32)
 
 
@@ -423,15 +452,116 @@ def closest_plain(counts, rays_packed, lists, tn_sorted, tri,
     """Plain version of K2: (Npad,) best t (BIG on a miss) and (Npad,) slot
     = block*128 + lane (-1 on a miss); ties go to the first triangle in
     visit order."""
-    return _walk_plain(counts, rays_packed, lists, tn_sorted, tri, tile,
-                       group, closest=True)
+    t, slot, _ = _walk_plain(counts, rays_packed, lists, tn_sorted, flat_rows(tri),
+                             tile, group, closest=True)
+    return t, slot
 
 
 def occluded_plain(counts, rays_packed, lists, tri, tile: int = TILE,
                    group: int = GROUP):
     """Plain version of K3: (Npad,) 1.0 where blocked, else 0.0."""
-    return _walk_plain(counts, rays_packed, lists, None, tri, tile, group,
+    return _walk_plain(counts, rays_packed, lists, None, flat_rows(tri), tile, group,
                        closest=False)
+
+
+def walk_tests(counts, rays_packed, lists, tn_sorted, rows_of, tile: int = TILE,
+               group: int = GROUP, closest: bool = True) -> tuple[int, int]:
+    """(Moller-Trumbore tests, staged slots) that the walk kernel (K2 or
+    K3 with ``flat_rows``; K6 or K7 with the two-level loader) runs on
+    these inputs: the groups walked before the early exit, times the group's
+    slots, times the rays of the tile that test."""
+    tally = []
+    _walk_plain(counts, rays_packed, lists, tn_sorted, rows_of, tile, group, closest,
+                tally=tally)
+    return (int(sum(int(a) for a, _ in tally)), int(sum(b for _, b in tally)))
+
+
+def cull_tests(rays_packed: torch.Tensor, chunk_aabb: torch.Tensor,
+               aabb: torch.Tensor, tile: int = TILE) -> int:
+    """Slab tests that K1 runs on these inputs: each (tile, chunk) pair with
+    a real chunk box tests the tile's rays against the chunk box; a chunk
+    that one of them enters then tests every real block of the chunk
+    against every ray of the tile."""
+    npad = rays_packed.shape[1]
+    n_tiles = npad // tile
+    ox, oy, oz, _, _, _, ix, iy, iz, tmn, tmx = _ray_rows(
+        rays_packed.reshape(8, n_tiles, tile, 1))
+    tn, tf = _slab(chunk_aabb[:, 0:3].T, chunk_aabb[:, 3:6].T, (ox, oy, oz),
+                   (ix, iy, iz), tmn, tmx)  # (n_tiles, tile, n_chunks)
+    entered = (tn <= tf).any(dim=1)  # (n_tiles, n_chunks)
+    real_chunk = ~torch.isnan(chunk_aabb[:, 0])
+    real_blocks = (~torch.isnan(aabb[:, 0])).reshape(-1, 128).sum(dim=1)
+    level1 = n_tiles * int(real_chunk.sum()) * tile
+    level2 = int((entered.sum(dim=0) * real_blocks).sum()) * tile
+    return level1 + level2
+
+
+# --------------------------------------------------------------------------
+# Plain versions of the dense kernels K4/K5 (used only for CPU tensors)
+# --------------------------------------------------------------------------
+
+
+def _dense_plain(rays_packed: torch.Tensor, tri: torch.Tensor, closest: bool):
+    """Every ray against every slot of a <= DENSE_BLOCKS-block table, one
+    block at a time in slot order (as the JAX package's dense kernels); rays
+    are taken in chunks to bound the (rays, 128) test matrices."""
+    npad = rays_packed.shape[1]
+    dev = rays_packed.device
+    best_t = torch.full((npad,), BIG, dtype=torch.float32, device=dev)
+    best_slot = torch.full((npad,), -1, dtype=torch.int32, device=dev)
+    blocked = torch.zeros((npad,), dtype=torch.bool, device=dev)
+    step = (1 << 22) // BLOCK
+    for s in range(0, npad, step):
+        ox, oy, oz, dx, dy, dz, _, _, _, tmn, tmx = _ray_rows(
+            rays_packed[:, s:s + step, None])  # each (R, 1)
+        bt, bs, bb = best_t[s:s + step, None], best_slot[s:s + step, None], blocked[s:s + step]
+        for b in range(tri.shape[1] // BLOCK):
+            tri9 = [tri[c, None, b * BLOCK:(b + 1) * BLOCK] for c in range(9)]  # (1, 128)
+            if closest:
+                t, hit = _mt(tri9, (ox, oy, oz), (dx, dy, dz), tmn, tmx, bt)
+                tnew, j = torch.where(hit, t, BIG).min(dim=1, keepdim=True)
+                better = tnew < bt
+                bs = torch.where(better, b * BLOCK + j.to(torch.int32), bs)
+                bt = torch.where(better, tnew, bt)
+            else:
+                _, hit = _mt(tri9, (ox, oy, oz), (dx, dy, dz), tmn, tmx,
+                             torch.where(bb, -BIG, BIG)[:, None])
+                bb = bb | hit.any(dim=1)
+        best_t[s:s + step], best_slot[s:s + step], blocked[s:s + step] = bt[:, 0], bs[:, 0], bb
+    if closest:
+        return best_t, best_slot
+    return blocked.to(torch.float32)
+
+
+def dense_closest_plain(rays_packed: torch.Tensor, tri: torch.Tensor):
+    """Plain version of K4: (Npad,) best t (BIG on a miss) and slot (-1 on
+    a miss) over every slot of the table; ties go to the lowest slot."""
+    return _dense_plain(rays_packed, tri, True)
+
+
+def dense_any_plain(rays_packed: torch.Tensor, tri: torch.Tensor):
+    """Plain version of K5: (Npad,) 1.0 where a slot blocks the segment."""
+    return _dense_plain(rays_packed, tri, False)
+
+
+def dense_tests(rays_packed: torch.Tensor, tri: torch.Tensor, closest: bool) -> int:
+    """Moller-Trumbore tests that K4 (``closest``) or K5 runs on these
+    inputs: every live ray tests every slot, except that K5 stops a ray at
+    its first blocking slot."""
+    _, _, _, _, _, _, _, _, _, tmn, tmx = _ray_rows(rays_packed)
+    live = tmx > tmn
+    nt = tri.shape[1]
+    if closest:
+        return int(live.sum()) * nt
+    total = 0
+    step = (1 << 22) // nt
+    for s in range(0, rays_packed.shape[1], step):
+        ox, oy, oz, dx, dy, dz, _, _, _, tmn, tmx = _ray_rows(rays_packed[:, s:s + step, None])
+        _, hit = _mt([tri[c, None, :] for c in range(9)], (ox, oy, oz), (dx, dy, dz),
+                     tmn, tmx, BIG)  # (R, NT)
+        first = torch.where(hit.any(dim=1), hit.to(torch.int8).argmax(dim=1) + 1, nt)
+        total += int(torch.where(live[s:s + step], first, 0).sum())
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -477,15 +607,27 @@ def lists_from_keys(key: torch.Tensor):
     return counts, lists.contiguous(), tn_sorted.contiguous()
 
 
+def _dense_query(rays_packed, tri, closest: bool):
+    """The dense kernels take the (8, Npad) ray table as the visit-list
+    path packs it: they mask the ragged end themselves, so no wider padding
+    (the JAX package's ``_dense_pad``) is needed."""
+    if closest:
+        return _kernel_or_plain(rays_packed, kernels.dense_closest,
+                                dense_closest_plain)(rays_packed, tri)
+    return _kernel_or_plain(rays_packed, kernels.dense_any, dense_any_plain)(rays_packed, tri)
+
+
 def _query_closest(rays_packed, accel: BlockedAccel):
-    # K4/K5 (the dense kernels for scenes of at most 8 blocks) are the next
-    # step here; until then every scene takes the visit-list path.
+    if accel.num_blocks <= DENSE_BLOCKS:
+        return _dense_query(rays_packed, accel.tri, True)
     counts, lists, tn_sorted = _visit_lists(rays_packed, accel)
     closest = _kernel_or_plain(rays_packed, kernels.closest, closest_plain)
     return closest(counts, rays_packed, lists, tn_sorted, accel.tri, TILE, GROUP)
 
 
 def _query_any(rays_packed, accel: BlockedAccel):
+    if accel.num_blocks <= DENSE_BLOCKS:
+        return _dense_query(rays_packed, accel.tri, False)
     counts, lists, _ = _visit_lists(rays_packed, accel)
     occluded = _kernel_or_plain(rays_packed, kernels.occluded, occluded_plain)
     return occluded(counts, rays_packed, lists, accel.tri, TILE, GROUP)

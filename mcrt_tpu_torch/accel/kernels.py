@@ -1,16 +1,20 @@
-"""Wrappers for the blocked intersector's CUDA kernels K1-K3.
+"""Wrappers for the intersector's CUDA kernels: K1 cull, K2 closest hit and
+K3 any hit of the blocked visit-list walk (``csrc/blocked.cu``), K4/K5 of
+the dense small-scene path (``csrc/dense.cu``) and K6/K7 of the two-level
+instanced walk (``csrc/two_level.cu``).
 
-The kernels are CUDA C++ in ``mcrt_tpu_torch/csrc/blocked.cu``, compiled
-at first use with nvcc into a shared library with a plain C interface
-(``mcrt_tpu_torch/_build/``, rebuilt when the sources' hash changes) and
-loaded with ctypes.
+The sources are compiled at first use with nvcc, one process per source
+started together, and linked into one shared library with a plain C
+interface (``mcrt_tpu_torch/_build/``, rebuilt when the sources' hash
+changes), loaded with ctypes.
 
 The wrappers take CUDA tensors only: each checks device, dtype, shape and
 contiguity, allocates the outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and raises if the launch reports an error;
 there is no fallback.  The kernels' plain PyTorch versions, and the choice
 between kernel and plain version by the rays' device, are in
-``blocked.py``.  ``<wrapper>.launches`` counts the kernel's launches.
+``blocked.py`` and ``two_level.py``.  ``<wrapper>.launches`` counts the
+kernel's launches.
 
 ctypes: every pointer and the stream go as ``c_void_p`` and
 every int as ``c_int``; a default ctypes argument is a 32-bit int and would
@@ -31,13 +35,16 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-_SOURCES = ("blocked.cuh", "blocked.cu")
+_HEADERS = ("blocked.cuh",)
+_UNITS = ("blocked.cu", "dense.cu", "two_level.cu")
+_SOURCES = _HEADERS + _UNITS
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # Float contraction: -fmad=false and no --use_fast_math, so
 # every multiply and add rounds on its own as in the plain versions;
 # later performance work may revisit this.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+DENSE_MAX_SLOTS = 1024  # K4/K5 stage the whole table: 8 blocks of 128 slots
 
 
 def _nvcc() -> str:
@@ -76,15 +83,37 @@ class _KernelLibrary:
             return self._lib
 
     def _build(self) -> str:
-        path = os.path.join(BUILD_DIR, f"libmcrt_blocked_{_source_hash()}.so")
+        path = os.path.join(BUILD_DIR, f"libmcrt_kernels_{_source_hash()}.so")
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, "blocked.cu")]
-            r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-            self.build_log = r.stdout + r.stderr
+            tag = f"{os.getpid()}.tmp"
+            nvcc = _nvcc()
+            objs = [os.path.join(BUILD_DIR, f"{u}.{tag}.o") for u in _UNITS]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                                       os.path.join(_CSRC, u)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for u, o in zip(_UNITS, objs)]
+            try:
+                logs = [p.communicate(timeout=600)[0] for p in procs]
+            finally:  # a timeout or an interrupt must not leave compilers running
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            self.build_log = "".join(logs)
+            failed = [(u, p.returncode) for u, p in zip(_UNITS, procs) if p.returncode]
+            if failed:
+                raise RuntimeError(f"nvcc failed {failed}:\n{self.build_log[-6000:]}")
+            tmp = f"{path}.{tag}"
+            r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                               text=True, timeout=600)
+            self.build_log += r.stdout + r.stderr
             if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{self.build_log[-4000:]}")
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                                   f"{self.build_log[-4000:]}")
+            for o in objs:
+                os.remove(o)
             os.replace(tmp, path)
         self.path = path
         return path
@@ -96,7 +125,13 @@ class _KernelLibrary:
         lib.mcrt_cull.argtypes = [p, p, p, p, i, i, i, p]
         lib.mcrt_closest.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.mcrt_occluded.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        for fn in (lib.mcrt_cull, lib.mcrt_closest, lib.mcrt_occluded):
+        lib.mcrt_dense_closest.argtypes = [p, p, p, p, i, i, p]
+        lib.mcrt_dense_any.argtypes = [p, p, p, i, i, p]
+        lib.mcrt_closest2.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.mcrt_occluded2.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        for fn in (lib.mcrt_cull, lib.mcrt_closest, lib.mcrt_occluded,
+                   lib.mcrt_dense_closest, lib.mcrt_dense_any, lib.mcrt_closest2,
+                   lib.mcrt_occluded2):
             fn.restype = ctypes.c_int
         return lib
 
@@ -166,6 +201,14 @@ def cull(rays_packed: torch.Tensor, chunk_aabb: torch.Tensor,
     return keys
 
 
+def _check_tri(tri: torch.Tensor, dev, max_slots: int | None = None):
+    if (tri.dim() != 2 or tri.shape[0] != 16 or tri.shape[1] % 128 or tri.shape[1] == 0
+            or (max_slots is not None and tri.shape[1] > max_slots)):
+        raise ValueError(f"tri has shape {tuple(tri.shape)}, expected (16, k*128)"
+                         + (f" with k*128 <= {max_slots}" if max_slots else ""))
+    _require(tri, "tri", torch.float32, tuple(tri.shape), dev)
+
+
 def _check_walk(counts, rays_packed, lists, tri, tile, group):
     dev = _cuda_device(rays_packed)
     npad = rays_packed.shape[1]
@@ -173,12 +216,10 @@ def _check_walk(counts, rays_packed, lists, tri, tile, group):
     if not 1 <= group <= 8:
         raise ValueError(f"group {group} must be in [1, 8]")
     n_tiles, nbpad = npad // tile, lists.shape[1]
-    if tri.shape[0] != 16 or tri.shape[1] % 128 or tri.shape[1] == 0:
-        raise ValueError(f"tri has shape {tuple(tri.shape)}, expected (16, k*128)")
+    _check_tri(tri, dev)
     _require(counts, "counts", torch.int32, (n_tiles,), dev)
     _require(rays_packed, "rays_packed", torch.float32, (8, npad), dev)
     _require(lists, "lists", torch.int32, (n_tiles, nbpad), dev)
-    _require(tri, "tri", torch.float32, tuple(tri.shape), dev)
     return dev, npad, nbpad
 
 
@@ -216,7 +257,96 @@ def occluded(counts, rays_packed, lists, tri, tile: int, group: int):
     return out
 
 
-WRAPPERS = {"K1": cull, "K2": closest, "K3": occluded}
+def _check_dense(rays_packed, tri):
+    dev = _cuda_device(rays_packed)
+    npad = rays_packed.shape[1]
+    _require(rays_packed, "rays_packed", torch.float32, (8, npad), dev)
+    _check_tri(tri, dev, DENSE_MAX_SLOTS)
+    return dev, npad
+
+
+def dense_closest(rays_packed: torch.Tensor, tri: torch.Tensor):
+    """K4: (Npad,) best t (BIG on a miss) and slot (-1 on a miss) over every
+    slot of a table of at most 1,024 slots (replaces
+    ``pallas_blocked.py:_dense_closest_kernel``)."""
+    dev, npad = _check_dense(rays_packed, tri)
+    t = torch.empty((npad,), dtype=torch.float32, device=dev)
+    slot = torch.empty((npad,), dtype=torch.int32, device=dev)
+    if npad == 0:
+        return t, slot
+    err = LIBRARY.get().mcrt_dense_closest(rays_packed.data_ptr(), tri.data_ptr(),
+                                           t.data_ptr(), slot.data_ptr(), npad,
+                                           tri.shape[1], _stream(dev))
+    dense_closest.launches += 1
+    _check_launch(err, "K4 dense_closest")
+    return t, slot
+
+
+def dense_any(rays_packed: torch.Tensor, tri: torch.Tensor):
+    """K5: (Npad,) 1.0 where a slot of the table blocks the segment, else
+    0.0 (replaces ``pallas_blocked.py:_dense_any_kernel``)."""
+    dev, npad = _check_dense(rays_packed, tri)
+    out = torch.empty((npad,), dtype=torch.float32, device=dev)
+    if npad == 0:
+        return out
+    err = LIBRARY.get().mcrt_dense_any(rays_packed.data_ptr(), tri.data_ptr(),
+                                       out.data_ptr(), npad, tri.shape[1], _stream(dev))
+    dense_any.launches += 1
+    _check_launch(err, "K5 dense_any")
+    return out
+
+
+def _check_pairs(dev, lists, pair_code, tw_rows):
+    _require(pair_code, "pair_code", torch.int32, (lists.shape[1],), dev)
+    if tw_rows.dim() != 1 or tw_rows.numel() == 0 or tw_rows.numel() % 12:
+        raise ValueError(f"tw_rows has shape {tuple(tw_rows.shape)}, expected (I*12,)")
+    _require(tw_rows, "tw_rows", torch.float32, tuple(tw_rows.shape), dev)
+    return tw_rows.numel() // 12
+
+
+def closest2(counts, rays_packed, lists, tn_sorted, tri, pair_code, tw_rows,
+             tile: int, group: int):
+    """K6: (Npad,) best t (BIG on a miss), slot (-1 on a miss) and instance
+    (-1 on a miss) of the walk over (instance, block) pair lists (replaces
+    ``two_level.py:_closest2_kernel``)."""
+    dev, npad, ppad = _check_walk(counts, rays_packed, lists, tri, tile, group)
+    _require(tn_sorted, "tn_sorted", torch.float32, tuple(lists.shape), dev)
+    n_inst = _check_pairs(dev, lists, pair_code, tw_rows)
+    t = torch.empty((npad,), dtype=torch.float32, device=dev)
+    slot = torch.empty((npad,), dtype=torch.int32, device=dev)
+    inst = torch.empty((npad,), dtype=torch.int32, device=dev)
+    if npad == 0:
+        return t, slot, inst
+    err = LIBRARY.get().mcrt_closest2(
+        counts.data_ptr(), rays_packed.data_ptr(), lists.data_ptr(), tn_sorted.data_ptr(),
+        pair_code.data_ptr(), tw_rows.data_ptr(), tri.data_ptr(), t.data_ptr(),
+        slot.data_ptr(), inst.data_ptr(), npad, tile, ppad, tri.shape[1], n_inst, group,
+        _stream(dev))
+    closest2.launches += 1
+    _check_launch(err, "K6 closest2")
+    return t, slot, inst
+
+
+def occluded2(counts, rays_packed, lists, tri, pair_code, tw_rows, tile: int,
+              group: int):
+    """K7: (Npad,) 1.0 where an instance blocks the segment, else 0.0
+    (replaces ``two_level.py:_occluded2_kernel``)."""
+    dev, npad, ppad = _check_walk(counts, rays_packed, lists, tri, tile, group)
+    n_inst = _check_pairs(dev, lists, pair_code, tw_rows)
+    out = torch.empty((npad,), dtype=torch.float32, device=dev)
+    if npad == 0:
+        return out
+    err = LIBRARY.get().mcrt_occluded2(
+        counts.data_ptr(), rays_packed.data_ptr(), lists.data_ptr(), pair_code.data_ptr(),
+        tw_rows.data_ptr(), tri.data_ptr(), out.data_ptr(), npad, tile, ppad,
+        tri.shape[1], n_inst, group, _stream(dev))
+    occluded2.launches += 1
+    _check_launch(err, "K7 occluded2")
+    return out
+
+
+WRAPPERS = {"K1": cull, "K2": closest, "K3": occluded, "K4": dense_closest,
+            "K5": dense_any, "K6": closest2, "K7": occluded2}
 for _w in WRAPPERS.values():
     _w.launches = 0
 

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core import math as m
-from ..core.types import RayDiff, TensorRecord, device_constant
+from ..core.types import RayDiff, TensorRecord, default_device, device_constant
 
 
 @dataclass
@@ -31,8 +31,9 @@ class PinholeCamera(TensorRecord):
 
     @classmethod
     def look_at(cls, eye, target, up=(0.0, 1.0, 0.0), fov_deg: float = 45.0,
-                aspect: float = 1.0, device="cpu"):
+                aspect: float = 1.0, device=None):
         f32 = torch.float32
+        device = default_device(device)
         eye = torch.as_tensor(eye, dtype=f32, device=device)
         target = torch.as_tensor(target, dtype=f32, device=device)
         up = torch.as_tensor(up, dtype=f32, device=device)
@@ -71,14 +72,15 @@ class PinholeCamera(TensorRecord):
 
 
 def pixel_uv(width: int, height: int, jitter: torch.Tensor | None = None,
-             device="cpu") -> torch.Tensor:
+             device=None) -> torch.Tensor:
     """uv at pixel centers (+ optional jitter in pixel units), flattened
     row-major to (W*H, 2).  v=0 is the bottom row."""
+    device = default_device(device)
     xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width
     ys = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
     v, u = torch.meshgrid(ys, xs, indexing="ij")
     uv = torch.stack([u.reshape(-1), v.reshape(-1)], dim=-1)
     if jitter is not None:
         uv = uv + jitter.to(device) / device_constant(
-            (float(width), float(height)), torch.device(device))
+            (float(width), float(height)), device)
     return uv

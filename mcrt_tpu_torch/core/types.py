@@ -21,6 +21,18 @@ import torch
 F32_MAX = float(torch.finfo(torch.float32).max)
 
 
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` where the caller names
+    one, else the CUDA card.  Without a card it raises rather than run on
+    the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device=\"cpu\" to run "
+                           "on the CPU")
+    return torch.device("cuda")
+
+
 @functools.lru_cache(maxsize=64)
 def device_constant(values: tuple, device: torch.device) -> torch.Tensor:
     """A small float32 constant on ``device``, copied once and cached.

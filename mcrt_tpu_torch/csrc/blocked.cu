@@ -1,5 +1,6 @@
 // Blocked-intersector kernels K1-K3 for Hopper (sm_90a), with a plain C
-// interface for ctypes (see mcrt_tpu_torch/accel/kernels.py).
+// interface for ctypes (see mcrt_tpu_torch/accel/kernels.py).  The dense
+// kernels K4/K5 are in dense.cu, the two-level K6/K7 in two_level.cu.
 //
 // Layouts (the JAX package's): rays (8, Npad) rows o.xyz, d.xyz, tmin,
 // tmax with inactive and padding rays at tmax = -BIG; tri (16, NT) rows
@@ -79,19 +80,6 @@ __global__ void cull_kernel(const float* __restrict__ rays,
     }
 #undef MCRT_RAY
     keys[(size_t)t * nbpad + b] = key;
-}
-
-// Block-wide max of one float per thread (blockDim a multiple of 32).
-__device__ float block_max(float v, float* s_red) {
-    for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (lane == 0) s_red[warp] = v;
-    __syncthreads();
-    float r = s_red[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fmaxf(r, s_red[w]);
-    __syncthreads();  // s_red is reused by the next call
-    return r;
 }
 
 // Stage `group` visit-list entries' triangle columns into shared memory:
@@ -233,10 +221,6 @@ __global__ void occluded_kernel(const int* __restrict__ counts,
     out[col] = blocked ? 1.0f : 0.0f;
 }
 
-size_t walk_smem(int group) {
-    return (size_t)9 * group * MCRT_BLOCK * sizeof(float) + group * sizeof(int);
-}
-
 }  // namespace
 
 extern "C" {
@@ -254,7 +238,7 @@ int mcrt_closest(const int* counts, const float* rays, const int* lists,
                  const float* tn_sorted, const float* tri, float* t_out,
                  int* slot_out, int npad, int tile, int nbpad, int nt,
                  int group, void* stream) {
-    closest_kernel<<<npad / tile, tile, walk_smem(group),
+    closest_kernel<<<npad / tile, tile, walk_smem(group, 1),
                      static_cast<cudaStream_t>(stream)>>>(
         counts, rays, lists, tn_sorted, tri, t_out, slot_out, npad, nbpad, nt,
         group);
@@ -264,7 +248,7 @@ int mcrt_closest(const int* counts, const float* rays, const int* lists,
 int mcrt_occluded(const int* counts, const float* rays, const int* lists,
                   const float* tri, float* out, int npad, int tile, int nbpad,
                   int nt, int group, void* stream) {
-    occluded_kernel<<<npad / tile, tile, walk_smem(group),
+    occluded_kernel<<<npad / tile, tile, walk_smem(group, 1),
                       static_cast<cudaStream_t>(stream)>>>(
         counts, rays, lists, tri, out, npad, nbpad, nt, group);
     return static_cast<int>(cudaGetLastError());

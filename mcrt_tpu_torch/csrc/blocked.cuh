@@ -1,5 +1,6 @@
-// Shared device functions of the blocked intersector's kernels K1-K3:
-// NaN-propagating min/max, the ray-slab test and the Moller-Trumbore test.
+// Shared device functions of the intersector kernels K1-K7: NaN-propagating
+// min/max, the ray-slab test, the Moller-Trumbore test and the block-wide
+// max of the walks' early exit.
 //
 // Every formula follows mcrt_tpu_torch/accel/blocked.py (_ray_rows, _slab,
 // _mt) operation for operation.  The library is compiled with -fmad=false
@@ -82,4 +83,23 @@ __device__ __forceinline__ bool mt_hit(float p0x, float p0y, float p0z,
     *t_out = t;
     return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmn &&
            t < tmx && t < best_t;
+}
+
+// Block-wide max of one float per thread (blockDim a multiple of 32).
+__device__ __forceinline__ float block_max(float v, float* s_red) {
+    for (int off = 16; off > 0; off >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (lane == 0) s_red[warp] = v;
+    __syncthreads();
+    float r = s_red[0];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fmaxf(r, s_red[w]);
+    __syncthreads();  // s_red is reused by the next call
+    return r;
+}
+
+// Dynamic shared memory of a walk (K2/K3, K6/K7): 9 rows of group*128
+// triangle floats plus `ids` ints per group entry.
+inline size_t walk_smem(int group, int ids) {
+    return (size_t)9 * group * MCRT_BLOCK * sizeof(float) + (size_t)ids * group * sizeof(int);
 }

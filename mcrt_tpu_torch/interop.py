@@ -1,14 +1,18 @@
 """Build port objects from another package's tables given as numpy arrays.
 
 The JAX package is the port's reference.  These helpers take its scene,
-camera and blocked-accel tables as plain numpy arrays (no jax import here),
-so that a test can run both packages on identical inputs: the counterpart
-of carrying weights across.
+camera and accel tables as plain numpy arrays (no jax import here), so
+that a test can run both packages on identical inputs: the counterpart of
+carrying weights across.  Like every entry point of the port, they put
+what they build on the CUDA card unless the caller names another
+``device``.
 
 ``scene_from_numpy`` takes a flat dict keyed by dotted field paths of the
 reference's ``Scene`` (``"geometry.positions"``, ``"materials.diffuse"``,
-``"lights.tri_cdf"``, ``"center"``, ...).  Texture tables, if present, are
-only counted: a scene with textures is refused at shading.
+``"lights.tri_cdf"``, ``"textures.data"``, ``"instances.shape"``,
+``"center"``, ...).  The instance registry's face ranges are static
+fields of the reference, not array leaves: pass them as
+``"instances.face_lo"`` and ``"instances.face_hi"`` beside its arrays.
 """
 from __future__ import annotations
 
@@ -16,8 +20,10 @@ import numpy as np
 import torch
 
 from .accel.blocked import BlockedAccel
+from .accel.two_level import TwoLevelAccel
 from .camera.pinhole import PinholeCamera
-from .scene.scene import (Geometry, Lights, Materials, Scene, Shapes,
+from .core.types import default_device
+from .scene.scene import (Geometry, Instances, Lights, Materials, Scene, Shapes,
                           TextureAtlas)
 
 _GEOMETRY_DTYPES = {
@@ -32,47 +38,60 @@ _MATERIAL_FIELDS = ("diffuse", "glossy", "kr", "kt", "opacity", "roughness",
 _LIGHT_FIELDS = ("type", "position", "direction", "intensity", "radius",
                  "area", "shape", "tri_offset", "tri_count", "tri_index",
                  "tri_cdf", "tri_light", "num")
+_TEXTURE_DTYPES = {"data": torch.uint8, "offset": torch.int32, "width": torch.int32,
+                   "height": torch.int32, "mips": torch.int32, "wrap": torch.int32}
 
 
 def _group(leaves: dict, prefix: str, names) -> dict:
     return {k: np.array(leaves[f"{prefix}.{k}"]) for k in names}
 
 
-def scene_from_numpy(leaves: dict[str, np.ndarray], device="cpu") -> Scene:
+def scene_from_numpy(leaves: dict[str, np.ndarray], device=None) -> Scene:
     """A port ``Scene`` from the reference scene's leaves (see module doc)."""
-    if any(k.startswith("instances.") for k in leaves):
-        raise NotImplementedError("instanced scenes are not ported yet (ROADMAP)")
+    device = default_device(device)
 
     def t(key, dtype):
         return torch.as_tensor(np.array(leaves[key]), dtype=dtype, device=device)
 
-    geometry = Geometry(**{k: t(f"geometry.{k}", d)
-                           for k, d in _GEOMETRY_DTYPES.items()})
+    instances = None
+    if "instances.shape" in leaves:
+        instances = Instances(
+            shape=t("instances.shape", torch.int32),
+            src_shape=t("instances.src_shape", torch.int32),
+            face_lo=tuple(int(x) for x in leaves["instances.face_lo"]),
+            face_hi=tuple(int(x) for x in leaves["instances.face_hi"]))
+    geometry = Geometry(**{k: t(f"geometry.{k}", d) for k, d in _GEOMETRY_DTYPES.items()},
+                        instanced=instances is not None)
     shapes = Shapes(**{k: t(f"shapes.{k}", d) for k, d in _SHAPE_DTYPES.items()})
-    offset = leaves.get("textures.offset")
+    textures = (TextureAtlas(**{k: t(f"textures.{k}", d) for k, d in _TEXTURE_DTYPES.items()})
+                if "textures.data" in leaves else TextureAtlas.empty(device))
     return Scene(
         geometry=geometry,
         shapes=shapes,
         materials=Materials.from_arrays(
             device, **_group(leaves, "materials", _MATERIAL_FIELDS)),
         lights=Lights.from_arrays(device, **_group(leaves, "lights", _LIGHT_FIELDS)),
-        textures=TextureAtlas(num=0 if offset is None else int(np.asarray(offset).shape[1])),
+        textures=textures,
         center=t("center", torch.float32),
         radius=t("radius", torch.float32),
+        instances=instances,
     )
 
 
-def camera_from_numpy(leaves: dict[str, np.ndarray], device="cpu") -> PinholeCamera:
+def camera_from_numpy(leaves: dict[str, np.ndarray], device=None) -> PinholeCamera:
     """A port ``PinholeCamera`` from the reference camera's fields."""
+    device = default_device(device)
     return PinholeCamera(**{
         k: torch.as_tensor(np.array(v), dtype=torch.float32, device=device)
         for k, v in leaves.items()})
 
 
 def blocked_accel_from_numpy(tri, aabb, slot_prim, bounds, chunk_aabb,
-                             num_blocks: int, device="cpu",
+                             num_blocks: int, device=None,
                              builder: str = "sah") -> BlockedAccel:
     """A port ``BlockedAccel`` from the reference's blocked-accel tables."""
+    device = default_device(device)
+
     def t(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
@@ -82,3 +101,22 @@ def blocked_accel_from_numpy(tri, aabb, slot_prim, bounds, chunk_aabb,
         chunk_aabb=t(chunk_aabb, torch.float32), num_blocks=int(num_blocks),
         builder=builder,
     )
+
+
+def two_level_accel_from_numpy(blas: BlockedAccel, world_to_object, tw_rows, shape_id,
+                               pair_aabb, pair_chunk, pair_code, bounds,
+                               num_instances: int, num_pairs: int,
+                               device=None) -> TwoLevelAccel:
+    """A port ``TwoLevelAccel`` from the reference's two-level tables, with
+    its BLAS from ``blocked_accel_from_numpy``."""
+    device = default_device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return TwoLevelAccel(
+        blas=blas.to(device), world_to_object=t(world_to_object, torch.float32),
+        tw_rows=t(tw_rows, torch.float32), shape_id=t(shape_id, torch.int32),
+        pair_aabb=t(pair_aabb, torch.float32), pair_chunk=t(pair_chunk, torch.float32),
+        pair_code=t(pair_code, torch.int32), bounds=t(bounds, torch.float32),
+        num_instances=int(num_instances), num_pairs=int(num_pairs))

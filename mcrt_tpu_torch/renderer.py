@@ -19,7 +19,7 @@ import torch
 from .accel import Intersector, build_intersector
 from .camera.pinhole import PinholeCamera, pixel_uv
 from .config import IntegratorType, RenderConfig
-from .core.types import Rays
+from .core.types import Rays, default_device
 from .film.accumulate import Accumulator, accumulate
 from .integrators import path as path_integrator
 from .sampling import rng
@@ -41,13 +41,14 @@ def _radical_inverse(i: int, base: int) -> np.float32:
     return val
 
 
-def frame_jitter(frame: int, device="cpu") -> torch.Tensor:
+def frame_jitter(frame: int, device=None) -> torch.Tensor:
     """(2,) sub-pixel offset in [-0.5, 0.5) for this frame."""
+    device = default_device(device)
     f = int(frame)
     half = np.float32(0.5)
     jit = np.asarray([_radical_inverse(f + 1, 2) - half,
                       _radical_inverse(f + 1, 3) - half], np.float32)
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         # pinned memory and a non-blocking copy: a copy from pageable memory
         # would make the host wait for the stream once a frame
         return torch.from_numpy(jit).pin_memory().to(device, non_blocking=True)
@@ -119,16 +120,17 @@ def render_frame_fn(scene: Scene, camera: PinholeCamera, accum: Accumulator,
 
 
 class Renderer:
-    """Host-side orchestrator: owns the scene and camera on ``device``, the
-    intersector (built once) and the accumulator."""
+    """Host-side orchestrator: owns the scene and camera on ``device`` (the
+    CUDA card unless the caller names another), the intersector (built
+    once) and the accumulator."""
 
     def __init__(self, scene: Scene, camera: PinholeCamera, cfg: RenderConfig,
-                 device="cpu"):
+                 device=None):
         if cfg.denoise.enabled or cfg.tonemap.enabled:
             raise NotImplementedError(
                 "denoise and tonemap are not ported yet (ROADMAP, Queue 1: "
                 "tonemap and denoise)")
-        self.device = torch.device(device)
+        self.device = default_device(device)
         self.scene = scene.to(self.device)
         self.camera = camera.to(self.device)
         self.cfg = cfg

@@ -1,18 +1,25 @@
 """Procedural scene builders (counterpart of part of
-``mcrt_tpu/scene/builders.py``): the host geometry accumulator, quad / box
-/ icosphere primitives, the two offline demo scenes the port's tests use
-and ``sphere_field``, the large stand-in scene of the main-path runs.  The
-numpy code of the first two is the JAX package's, so both build identical
-scenes.
+``mcrt_tpu/scene/builders.py``): the host geometry accumulator with baked
+and no-bake instancing, quad / box / icosphere primitives, the offline demo
+scenes (``cornell_box``, ``glass_gallery``, the textured ``textured_hall``,
+the instanced ``instanced_boxes``) and ``sphere_field`` with its instanced
+form ``sphere_field_instanced``, the large stand-in scenes of the
+main-path runs.  The numpy code of the demo scenes is the JAX package's, so
+both packages build identical scenes.  Every builder puts its scene on the
+CUDA card unless the caller names another ``device``.
 
-Not ported yet (ROADMAP): instanced shapes (``add_instanced``), OBJ-based
-scenes and the textured demo scenes."""
+Not ported yet (ROADMAP): OBJ-based scenes."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..camera.pinhole import PinholeCamera
-from .scene import LIGHT_MESH, Scene, UberMaterial, build_scene, make_lights
+from ..core.types import default_device
+from .dynamic import rotation_y, scale, translation
+from .scene import (LIGHT_DIRECTIONAL, LIGHT_MESH, LIGHT_POINT, N_TEX_SLOTS, TEX_DIFFUSE,
+                    TEX_NORMAL, Instances, Scene, UberMaterial, build_scene, make_lights)
+from .textures import AtlasBuilder
 
 
 class SceneBuffers:
@@ -26,8 +33,13 @@ class SceneBuffers:
         self.face_shape: list[np.ndarray] = []
         self.shape_material: list[int] = []
         self.shape_light: list[int] = []
+        # no-bake instances: (shape_id, src_shape, to_world (4,4))
+        self.instances: list[tuple[int, int, np.ndarray]] = []
+        self.shape_to_world: list[np.ndarray] = []
         self._voff = 0
         self._shape = 0
+        self._face_count = 0
+        self._mesh_face_range: dict[int, tuple[int, int]] = {}
 
     def add_mesh(self, positions, indices, material_id, normals=None, uvs=None,
                  light_id=-1) -> int:
@@ -45,9 +57,50 @@ class SceneBuffers:
         self.shape_material.append(material_id)
         self.shape_light.append(light_id)
         self._voff += len(positions)
+        self.shape_to_world.append(np.eye(4, dtype=np.float32))
         sid = self._shape
+        self._mesh_face_range[sid] = (self._face_count, self._face_count + len(indices))
+        self._face_count += len(indices)
         self._shape += 1
         return sid
+
+    def add_instanced(self, src_shape: int, material_id: int,
+                      to_world: np.ndarray, light_id: int = -1) -> int:
+        """Instance a previously added mesh without baking it: the new shape
+        references the source mesh's faces and carries only a transform, so
+        geometry and accel memory stay constant in the instance count.  The
+        scene then renders through the two-level intersector.  Instanced
+        shapes cannot be area lights (mesh-light CDFs index world-space
+        faces): add an emitter as a baked mesh."""
+        if light_id != -1:
+            raise ValueError(
+                "instanced shapes cannot carry mesh lights; add the emitter "
+                "as a baked mesh (add_mesh / add_instance)")
+        if src_shape not in self._mesh_face_range:
+            raise ValueError(f"shape {src_shape} is not a source mesh")
+        self.shape_material.append(material_id)
+        self.shape_light.append(-1)
+        self.shape_to_world.append(np.asarray(to_world, np.float32))
+        sid = self._shape
+        self._shape += 1
+        self.instances.append((sid, src_shape, np.asarray(to_world, np.float32)))
+        return sid
+
+    def add_instance(self, src_shape: int, material_id: int,
+                     to_world: np.ndarray, light_id: int = -1) -> int:
+        """Instance a previously added shape under a new transform, baked:
+        the instance gets its own world-space vertex block."""
+        mt = np.asarray(to_world, np.float32)
+        pos = self.positions[src_shape]
+        p = pos @ mt[:3, :3].T + mt[:3, 3]
+        nmat = np.linalg.inv(mt[:3, :3]).T
+        n = self.normals[src_shape] @ nmat.T
+        n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+        # rebase the source indices to this instance's vertex block
+        src_base = sum(len(v) for v in self.positions[:src_shape])
+        local = self.indices[src_shape] - src_base
+        return self.add_mesh(p, local, material_id, normals=n,
+                             uvs=self.uvs[src_shape], light_id=light_id)
 
     def concat(self):
         return (
@@ -59,6 +112,17 @@ class SceneBuffers:
             np.asarray(self.shape_material, np.int32),
             np.asarray(self.shape_light, np.int32),
         )
+
+    def instance_table(self):
+        """(shape_to_world (S, 4, 4), Instances or None) for build_scene."""
+        tw = np.stack(self.shape_to_world).astype(np.float32)
+        if not self.instances:
+            return tw, None
+        ranges = [self._mesh_face_range[i[1]] for i in self.instances]
+        return tw, Instances(
+            shape=torch.as_tensor([i[0] for i in self.instances], dtype=torch.int32),
+            src_shape=torch.as_tensor([i[1] for i in self.instances], dtype=torch.int32),
+            face_lo=tuple(r[0] for r in ranges), face_hi=tuple(r[1] for r in ranges))
 
 
 def _face_normals_to_vertex(positions, indices):
@@ -95,9 +159,10 @@ def box(lo, hi):
     return pos, idx
 
 
-def cornell_box(light_intensity=(17.0, 12.0, 4.0), device="cpu"):
+def cornell_box(light_intensity=(17.0, 12.0, 4.0), device=None):
     """The Cornell-box fixture: Lambertian walls, two white boxes, one
     ceiling area light."""
+    device = default_device(device)
     sb = SceneBuffers()
     white, red, green, light_m = 0, 1, 2, 3
     s = 1.0
@@ -132,7 +197,7 @@ def cornell_box(light_intensity=(17.0, 12.0, 4.0), device="cpu"):
     ]
     lights = make_lights(
         [{"type": LIGHT_MESH, "intensity": light_intensity, "shape": light_shape}],
-        positions, indices, face_shape,
+        positions, indices, face_shape, device=device,
     )
     scene = build_scene(positions, normals, uvs, indices, face_shape, shape_mat,
                         materials, lights=lights, shape_light=shape_light,
@@ -194,9 +259,10 @@ GALLERY_MATERIALS = (
 )
 
 
-def glass_gallery(device="cpu") -> tuple[Scene, PinholeCamera]:
+def glass_gallery(device=None) -> tuple[Scene, PinholeCamera]:
     """Glossy Trowbridge-Reitz microfacet and specular-transmission spheres
     under a mesh area light (about 3.8k triangles)."""
+    device = default_device(device)
     sb = SceneBuffers()
     ext = 4.0
     fp, fi = quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext])
@@ -212,7 +278,7 @@ def glass_gallery(device="cpu") -> tuple[Scene, PinholeCamera]:
     lights = make_lights(
         [{"type": LIGHT_MESH, "intensity": (14.0, 13.0, 12.0),
           "shape": light_shape}],
-        positions, indices, face_shape,
+        positions, indices, face_shape, device=device,
     )
     scene = build_scene(positions, normals, uvs, indices, face_shape,
                         shape_mat, list(GALLERY_MATERIALS), lights=lights,
@@ -222,30 +288,188 @@ def glass_gallery(device="cpu") -> tuple[Scene, PinholeCamera]:
     return scene, camera
 
 
-def sphere_field(subdiv: int = 5, device="cpu") -> tuple[Scene, PinholeCamera]:
-    """12 icospheres on a 4x3 grid over a floor quad, lit by a mesh area
-    light, with the ``glass_gallery`` material set.  At ``subdiv=5``
-    (20,480 triangles a sphere) it has 245,764 triangles: an offline
-    stand-in of the JAX bench's ``bunny_field`` (about 244k triangles),
-    which needs an OBJ file outside the repository."""
+def _sphere_field(subdiv: int, instanced: bool, device) -> tuple[Scene, PinholeCamera]:
+    device = default_device(device)
     sb = SceneBuffers()
     ext = 5.0
     fp, fi = quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext])
     sb.add_mesh(fp, fi, 0)
     unit_p, unit_i, unit_n = icosphere((0.0, 0.0, 0.0), 0.6, subdiv=subdiv)
-    for k in range(12):
-        gx, gz = k % 4, k // 4
-        center = np.asarray([(gx - 1.5) * 1.6, 0.6, (gz - 1.0) * 1.6], np.float32)
-        sb.add_mesh(unit_p + center, unit_i, 1 + k % 3, normals=unit_n)
+    centers = [np.asarray([(k % 4 - 1.5) * 1.6, 0.6, (k // 4 - 1.0) * 1.6], np.float32)
+               for k in range(12)]
+    src = sb.add_mesh(unit_p + centers[0], unit_i, 1, normals=unit_n)
+    for k in range(1, 12):
+        if instanced:
+            sb.add_instanced(src, 1 + k % 3, translation(centers[k] - centers[0]))
+        else:
+            sb.add_mesh(unit_p + centers[k], unit_i, 1 + k % 3, normals=unit_n)
     lp, li = quad([-1.5, 4.0, -1.5], [1.5, 4.0, -1.5], [1.5, 4.0, 1.5],
                   [-1.5, 4.0, 1.5])
     light_shape = sb.add_mesh(lp, li, 4, light_id=0)
     positions, normals, uvs, indices, face_shape, shape_mat, shape_light = sb.concat()
+    tw, instances = sb.instance_table()
     lights = make_lights([{"type": LIGHT_MESH, "intensity": (14.0, 13.0, 12.0),
-                           "shape": light_shape}], positions, indices, face_shape)
+                           "shape": light_shape}], positions, indices, face_shape,
+                         device=device)
     scene = build_scene(positions, normals, uvs, indices, face_shape, shape_mat,
                         list(GALLERY_MATERIALS), lights=lights,
-                        shape_light=shape_light, device=device)
+                        shape_light=shape_light, shape_to_world=tw,
+                        instances=instances, device=device)
     camera = PinholeCamera.look_at(eye=(0.0, 3.2, 7.5), target=(0.0, 0.5, 0.0),
                                    fov_deg=45.0, aspect=1.0, device=device)
+    return scene, camera
+
+
+def sphere_field(subdiv: int = 5, device=None) -> tuple[Scene, PinholeCamera]:
+    """12 icospheres on a 4x3 grid over a floor quad, lit by a mesh area
+    light, with the ``glass_gallery`` material set.  At ``subdiv=5``
+    (20,480 triangles a sphere) it has 245,764 triangles: an offline
+    stand-in of the JAX bench's ``bunny_field`` (about 244k triangles),
+    which needs an OBJ file outside the repository."""
+    return _sphere_field(subdiv, False, device)
+
+
+def sphere_field_instanced(subdiv: int = 5, device=None) -> tuple[Scene, PinholeCamera]:
+    """``sphere_field`` with the sphere added once and placed in the 11
+    other cells by no-bake instances (``SceneBuffers.add_instanced``): the
+    same materials, light, camera and content (245,764 triangles at
+    ``subdiv=5``), with one shared 20,480-triangle BLAS.  It stands in for
+    the JAX package's ``bunny_field_instanced``, which needs an OBJ file
+    outside the repository, and is the instanced form of the main path's
+    scene, so the two renders of the same content can be compared."""
+    return _sphere_field(subdiv, True, device)
+
+
+def _checkerboard(n: int = 256, tiles: int = 8, c0=(0.85, 0.82, 0.75),
+                  c1=(0.25, 0.2, 0.18)) -> np.ndarray:
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    mask = ((xx * tiles // n + yy * tiles // n) % 2).astype(bool)
+    return np.where(mask[..., None], np.asarray(c1, np.float32),
+                    np.asarray(c0, np.float32))
+
+
+def _ridge_normal_map(n: int = 256, freq: int = 12, amp: float = 0.35) -> np.ndarray:
+    """Tangent-space sine-ridge normal map encoded in [0, 1]."""
+    x = np.linspace(0, 2 * np.pi * freq, n, dtype=np.float32)
+    dz = amp * np.cos(x)  # d(height)/du
+    nm = np.zeros((n, n, 3), np.float32)
+    nm[..., 0] = (-dz / np.sqrt(1 + dz * dz))[None, :]
+    nm[..., 1] = 0.0
+    nm[..., 2] = (1.0 / np.sqrt(1 + dz * dz))[None, :]
+    return nm * 0.5 + 0.5
+
+
+def textured_hall(with_uvs_scale: float = 4.0, device=None) -> tuple[Scene, PinholeCamera]:
+    """A hall of checkerboard-textured and normal-mapped uber materials lit
+    by a point and a directional light (44 triangles): the JAX package's
+    stand-in of its BASELINE configuration 3 (Sponza's material and light
+    coverage), which pairs with the Sobol sampler."""
+    device = default_device(device)
+    atlas_b = AtlasBuilder()
+    tid_check = atlas_b.add(_checkerboard())
+    tid_warm = atlas_b.add(_checkerboard(tiles=16, c0=(0.8, 0.55, 0.35),
+                                         c1=(0.5, 0.3, 0.2)))
+    tid_nm = atlas_b.add(_ridge_normal_map())
+
+    tex_floor = np.full((N_TEX_SLOTS,), -1, np.int32)
+    tex_floor[TEX_DIFFUSE] = tid_check
+    tex_floor[TEX_NORMAL] = tid_nm
+    tex_wall = np.full((N_TEX_SLOTS,), -1, np.int32)
+    tex_wall[TEX_DIFFUSE] = tid_warm
+    mats = [
+        UberMaterial(diffuse=(1.0, 1.0, 1.0), glossy=(0.15, 0.15, 0.15),
+                     roughness=0.2, tex=tex_floor),
+        UberMaterial(diffuse=(1.0, 1.0, 1.0), tex=tex_wall),
+        UberMaterial(diffuse=(0.7, 0.7, 0.7)),
+    ]
+
+    sb = SceneBuffers()
+    s, h, d = 4.0, 3.0, 8.0
+    u = with_uvs_scale
+
+    def quad_uv(p0, p1, p2, p3):
+        pos, idx = quad(p0, p1, p2, p3)
+        return pos, idx, np.asarray([[0, 0], [u, 0], [u, u], [0, u]], np.float32)
+
+    pos, idx, uvs = quad_uv([-s, 0, d], [s, 0, d], [s, 0, -d], [-s, 0, -d])
+    sb.add_mesh(pos, idx, 0, uvs=uvs)  # floor: textured and normal-mapped
+    pos, idx, uvs = quad_uv([-s, 0, -d], [-s, 0, d], [-s, h, d], [-s, h, -d])
+    sb.add_mesh(pos, idx, 1, uvs=uvs)  # left wall
+    pos, idx, uvs = quad_uv([s, 0, d], [s, 0, -d], [s, h, -d], [s, h, d])
+    sb.add_mesh(pos, idx, 1, uvs=uvs)  # right wall
+    pos, idx, uvs = quad_uv([-s, 0, -d], [-s, h, -d], [s, h, -d], [s, 0, -d])
+    sb.add_mesh(pos, idx, 2, uvs=uvs)  # back wall
+    for cx in (-2.0, 0.0, 2.0):  # columns
+        p, i2 = box([cx - 0.25, 0.0, -2.0], [cx + 0.25, h * 0.8, -1.5])
+        sb.add_mesh(p, i2, 2)
+
+    positions, normals, uvs_a, indices, face_shape, shape_mat, shape_light = sb.concat()
+    lights = make_lights(
+        [{"type": LIGHT_POINT, "position": (0.0, h * 0.85, 1.0),
+          "intensity": (30.0, 28.0, 24.0)},
+         {"type": LIGHT_DIRECTIONAL, "direction": (-0.3, -1.0, -0.45),
+          "intensity": (2.5, 2.4, 2.2)}],
+        positions, indices, face_shape, device=device)
+    scene = build_scene(positions, normals, uvs_a, indices, face_shape, shape_mat, mats,
+                        lights=lights, shape_light=shape_light,
+                        textures=atlas_b.build(), device=device)
+    camera = PinholeCamera.look_at(eye=(0.0, 1.8, 6.5), target=(0.0, 1.0, -2.0),
+                                   fov_deg=55.0, aspect=1.0, device=device)
+    return scene, camera
+
+
+def instanced_boxes(grid: int = 3, bake: bool = False,
+                    device=None) -> tuple[Scene, PinholeCamera]:
+    """A floor, a grid of instances of one source box mesh (varied
+    rotations, scales and materials) and a baked emissive quad.
+    ``bake=True`` builds the same scene from baked world-space copies
+    (``add_instance``), the reference for the two-level engine."""
+    device = default_device(device)
+    sb = SceneBuffers()
+    ext = grid * 0.9
+    pos, idx = quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext])
+    sb.add_mesh(pos, idx, 0)  # floor
+    pos, idx = box([-0.25, 0.0, -0.25], [0.25, 0.55, 0.25])
+    src = sb.add_mesh(pos, idx, 1)  # the source mesh renders at its own pose
+
+    rng_l = np.random.default_rng(11)
+    for gx in range(grid):
+        for gz in range(grid):
+            if gx == 0 and gz == 0:
+                continue  # the source occupies cell (0, 0)
+            x = (gx - (grid - 1) / 2) * 1.5
+            z = (gz - (grid - 1) / 2) * 1.5
+            mt = (translation((x, 0.0, z))
+                  @ rotation_y(float(rng_l.uniform(0, np.pi)))
+                  @ scale((1.0, float(rng_l.uniform(0.6, 1.6)), 1.0)))
+            mat = 1 + (gx + gz) % 3
+            if bake:
+                sb.add_instance(src, mat, mt)
+            else:
+                sb.add_instanced(src, mat, mt)
+
+    # baked emissive quad overhead (mesh lights must be baked), wound so its
+    # geometric normal faces down into the scene
+    h = 2.2
+    pos, idx = quad([-0.8, h, -0.8], [0.8, h, -0.8], [0.8, h, 0.8], [-0.8, h, 0.8])
+    light_shape = sb.add_mesh(pos, idx, 4, light_id=0)
+
+    positions, normals, uvs, indices, face_shape, shape_mat, shape_light = sb.concat()
+    tw, instances = sb.instance_table()
+    materials = [
+        UberMaterial(diffuse=(0.70, 0.70, 0.70)),
+        UberMaterial(diffuse=(0.72, 0.25, 0.20)),
+        UberMaterial(diffuse=(0.25, 0.55, 0.72), glossy=(0.2, 0.2, 0.2),
+                     roughness=0.25),
+        UberMaterial(diffuse=(0.30, 0.65, 0.30)),
+        UberMaterial(diffuse=(0.0, 0.0, 0.0)),
+    ]
+    lights = make_lights([{"type": LIGHT_MESH, "intensity": (10.0, 9.5, 8.5),
+                           "shape": light_shape}], positions, indices, face_shape,
+                         device=device)
+    scene = build_scene(positions, normals, uvs, indices, face_shape, shape_mat, materials,
+                        lights=lights, shape_light=shape_light,
+                        shape_to_world=tw, instances=instances, device=device)
+    camera = PinholeCamera.look_at(eye=(0.0, grid * 1.1, grid * 1.9), target=(0.0, 0.3, 0.0),
+                                   fov_deg=50.0, aspect=1.0, device=device)
     return scene, camera

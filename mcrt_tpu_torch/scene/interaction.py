@@ -1,7 +1,8 @@
 """Surface interaction construction from hit records (counterpart of
 ``mcrt_tpu/scene/interaction.py``): triangle dpdu/dpdv from UVs, packed
-per-face attribute fetch and interpolation, the ray-differential transfer
-onto the hit plane, and the geometric-offset ray spawns."""
+per-face attribute fetch and interpolation (placed by the hit shape's
+transform in instanced scenes), the ray-differential transfer onto the hit
+plane, and the geometric-offset ray spawns."""
 from __future__ import annotations
 
 import torch
@@ -78,10 +79,21 @@ def compute_interaction(scene: Scene, rays: Rays, hit: Hit,
                         diff: RayDiff | None = None) -> Interaction:
     """The shading record at each hit; invalid lanes get benign defaults.
     With ``diff``, the uv screen footprint is transferred onto the hit
-    plane (it drives texture LOD once textures are ported)."""
-    if scene.geometry.instanced:
-        raise NotImplementedError("instanced scenes are not ported yet (ROADMAP)")
+    plane (it drives texture LOD)."""
     p3, n3, uv3, mat, light = _face_attributes(scene, hit.prim.clamp_min(0))
+    if scene.geometry.instanced:
+        # face attributes are the source mesh's (object space): the hit
+        # shape's transform places them, and material and light come from
+        # the shape tables (the two-level query reports the instance's shape)
+        shape = hit.shape.clamp_min(0)
+        tw = take_clip(scene.shapes.to_world, shape)
+        nm = take_clip(scene.shapes.normal_mat, shape)
+        rot, trans = tw[..., :3, :3], tw[..., :3, 3]
+        p3 = [(rot * p[..., None, :]).sum(-1) + trans for p in p3]
+        n3 = [(nm * v[..., None, :]).sum(-1) for v in n3]
+        ok = hit.shape >= 0
+        mat = torch.where(ok, take_clip(scene.shapes.material, shape), -1)
+        light = torch.where(ok, take_clip(scene.shapes.light, shape), -1)
     b1 = hit.u[..., None]
     b2 = hit.v[..., None]
     b0 = 1.0 - b1 - b2

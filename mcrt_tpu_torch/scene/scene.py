@@ -2,12 +2,10 @@
 
 The device scene is a small tree of tensor dataclasses: world-space
 triangle geometry with the packed per-face shading table, per-shape
-records, the uber-material table with its static used-lobe mask, and the
-light table.  Host-side assembly (``build_scene``, ``make_lights``) is the
-JAX package's numpy code, so both packages build identical tables.
-
-Not ported yet (ROADMAP): instanced shapes (``Scene.instances`` must be
-None) and textures (``TextureAtlas`` is held only as an empty container).
+records, the uber-material table with its static used-slot and used-lobe
+masks, the light table, the texture atlas and, for instanced scenes, the
+instance registry.  Host-side assembly (``build_scene``, ``make_lights``)
+is the JAX package's numpy code, so both packages build identical tables.
 """
 from __future__ import annotations
 
@@ -16,7 +14,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..core.types import TensorRecord
+from ..core.types import TensorRecord, default_device
 
 LIGHT_DIRECTIONAL = 0
 LIGHT_POINT = 1
@@ -144,7 +142,7 @@ class Materials(TensorRecord):
     used_lobes: tuple = (True,) * 7
 
     @classmethod
-    def from_arrays(cls, device="cpu", **arrays):
+    def from_arrays(cls, device, **arrays):
         f32, i32 = torch.float32, torch.int32
         used_slots, used_lobes = material_masks(
             arrays["diffuse"], arrays["glossy"], arrays["kr"], arrays["kt"],
@@ -155,7 +153,7 @@ class Materials(TensorRecord):
                    used_slots=used_slots, used_lobes=used_lobes)
 
     @classmethod
-    def stack(cls, mats: list["UberMaterial"], device="cpu"):
+    def stack(cls, mats: list["UberMaterial"], device):
         names = ("diffuse", "glossy", "kr", "kt", "opacity", "roughness",
                  "ior", "tex", "conductor_eta", "conductor_k", "rs_blend")
         return cls.from_arrays(device=device, **{
@@ -209,7 +207,7 @@ class Lights(TensorRecord):
         return self.type.shape[0]
 
     @classmethod
-    def from_arrays(cls, device="cpu", **arrays):
+    def from_arrays(cls, device, **arrays):
         ints = ("type", "shape", "tri_offset", "tri_count", "tri_index",
                 "tri_light")
         num = int(np.asarray(arrays.pop("num")))
@@ -217,7 +215,7 @@ class Lights(TensorRecord):
                             device) for k, v in arrays.items()}, num=num)
 
     @classmethod
-    def empty(cls, device="cpu"):
+    def empty(cls, device):
         z = np.zeros((0,), np.float32)
         z3 = np.zeros((0, 3), np.float32)
         zi = np.zeros((0,), np.int32)
@@ -228,11 +226,49 @@ class Lights(TensorRecord):
 
 
 @dataclass
-class TextureAtlas(TensorRecord):
-    """Held only as an empty container: texture sampling is not ported yet
-    (ROADMAP), so a scene with ``num > 0`` textures is refused at shading."""
+class Instances(TensorRecord):
+    """Instanced-shape registry: each instance is a shape whose geometry is
+    the face range of a source mesh held once in the global face table,
+    placed by ``shapes.to_world[shape]``.  The face ranges are static
+    build-time data for the two-level accel builder."""
 
-    num: int = 0
+    shape: torch.Tensor  # (I,) i32 shape id of each instance
+    src_shape: torch.Tensor  # (I,) i32 source shape id
+    face_lo: tuple = ()
+    face_hi: tuple = ()
+
+    @property
+    def num(self) -> int:
+        return len(self.face_lo)
+
+
+@dataclass
+class TextureAtlas(TensorRecord):
+    """Every texture and its mip chain in one RGBA8 texel buffer, with one
+    descriptor row per mip level, so that LOD selection is a gather at
+    [level, texture].  (Float texels for texture gradients wait for inverse
+    rendering.)"""
+
+    data: torch.Tensor  # (4, TEXELS) u8 RGBA texels, transposed
+    offset: torch.Tensor  # (MAX_MIPS, T) i32 texel offset per [level, texture]
+    width: torch.Tensor  # (MAX_MIPS, T) i32
+    height: torch.Tensor  # (MAX_MIPS, T) i32
+    mips: torch.Tensor  # (T,) i32 number of mip levels
+    wrap: torch.Tensor  # (T,) i32 wrap mode (0 repeat, 1 clamp, 2 mirror, 3 border)
+
+    @classmethod
+    def empty(cls, device=None):
+        i32 = torch.int32
+        return cls(data=torch.zeros((4, 1), dtype=torch.uint8, device=device),
+                   offset=torch.zeros((1, 0), dtype=i32, device=device),
+                   width=torch.zeros((1, 0), dtype=i32, device=device),
+                   height=torch.zeros((1, 0), dtype=i32, device=device),
+                   mips=torch.zeros((0,), dtype=i32, device=device),
+                   wrap=torch.zeros((0,), dtype=i32, device=device))
+
+    @property
+    def num(self) -> int:
+        return self.offset.shape[1]
 
 
 @dataclass
@@ -244,7 +280,9 @@ class Scene(TensorRecord):
     textures: TextureAtlas
     center: torch.Tensor  # (3,)
     radius: torch.Tensor  # ()
-    instances: object | None = field(default=None)
+    # instance registry (None for fully baked scenes); its presence routes
+    # AccelType.AUTO to the two-level intersector
+    instances: Instances | None = field(default=None)
 
 
 def _pad_faces(indices: np.ndarray, face_shape: np.ndarray, multiple: int = 128):
@@ -260,9 +298,13 @@ def _pad_faces(indices: np.ndarray, face_shape: np.ndarray, multiple: int = 128)
 
 def build_scene(positions, normals, uvs, indices, face_shape, shape_material,
                 materials: list[UberMaterial], lights: Lights | None = None,
-                shape_light=None, pad_multiple: int = 128,
-                device="cpu") -> Scene:
-    """Assemble a Scene from host numpy arrays (world-space geometry)."""
+                shape_light=None, textures: TextureAtlas | None = None,
+                pad_multiple: int = 128, shape_to_world=None,
+                instances: Instances | None = None, device=None) -> Scene:
+    """Assemble a Scene from host numpy arrays (world-space geometry for
+    baked shapes; an instanced shape references a source mesh's face range
+    and is placed by ``shape_to_world``: pass the ``Instances`` registry)."""
+    device = default_device(device)
     indices = np.asarray(indices, np.int32).reshape(-1, 3)
     face_shape = np.asarray(face_shape, np.int32)
     indices_p, face_shape_p, valid = _pad_faces(indices, face_shape, pad_multiple)
@@ -271,6 +313,16 @@ def build_scene(positions, normals, uvs, indices, face_shape, shape_material,
         shape_light = np.full((num_shapes,), -1, np.int32)
     pos = np.asarray(positions, np.float32).reshape(-1, 3)
     lo, hi = pos.min(0), pos.max(0)
+    if instances is not None and shape_to_world is not None:
+        # the scene bounds cover the instanced copies, not just the sources
+        tw = np.asarray(shape_to_world, np.float32)
+        inst_shape = instances.shape.cpu().numpy()
+        for k in range(instances.num):
+            vids = np.unique(indices[instances.face_lo[k]:instances.face_hi[k]])
+            mk = tw[int(inst_shape[k])]
+            p = pos[vids] @ mk[:3, :3].T + mk[:3, 3]
+            lo = np.minimum(lo, p.min(0))
+            hi = np.maximum(hi, p.max(0))
     center = (lo + hi) * 0.5
     radius = float(np.linalg.norm(hi - center) + 1e-6)
 
@@ -283,24 +335,31 @@ def build_scene(positions, normals, uvs, indices, face_shape, shape_material,
     fvalid_t = _t(valid, torch.bool, device)
     smat_t = _t(np.asarray(shape_material, np.int32), i32, device)
     slight_t = _t(np.asarray(shape_light, np.int32), i32, device)
+    if shape_to_world is None:
+        tw_t = torch.eye(4, dtype=f32, device=device).repeat(num_shapes, 1, 1)
+        nm_t = torch.eye(3, dtype=f32, device=device).repeat(num_shapes, 1, 1)
+    else:
+        tw = np.asarray(shape_to_world, np.float32)
+        tw_t = _t(tw, f32, device)
+        nm_t = _t(np.swapaxes(np.linalg.inv(tw[:, :3, :3]), -1, -2).astype(np.float32),
+                  f32, device)
     return Scene(
         geometry=Geometry(
             positions=pos_t, normals=nrm_t, uvs=uvs_t, indices=idx_t,
             face_shape=fshape_t, face_valid=fvalid_t,
             face_attrs=pack_face_attrs(pos_t, nrm_t, uvs_t, idx_t, fshape_t,
                                        fvalid_t, smat_t, slight_t),
+            instanced=instances is not None,
         ),
-        shapes=Shapes(
-            material=smat_t, light=slight_t,
-            to_world=torch.eye(4, dtype=f32, device=device).repeat(num_shapes, 1, 1),
-            normal_mat=torch.eye(3, dtype=f32, device=device).repeat(num_shapes, 1, 1),
-        ),
+        shapes=Shapes(material=smat_t, light=slight_t, to_world=tw_t, normal_mat=nm_t),
         materials=Materials.stack(materials, device),
         lights=(lights.to(device) if lights is not None
                 else Lights.empty(device)),
-        textures=TextureAtlas(),
+        textures=(textures.to(device) if textures is not None
+                  else TextureAtlas.empty(device)),
         center=_t(center, f32, device),
         radius=torch.tensor(radius, dtype=f32, device=device),
+        instances=instances.to(device) if instances is not None else None,
     )
 
 
@@ -313,7 +372,7 @@ def triangle_areas(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
 
 def make_lights(host_lights: list[dict], positions: np.ndarray,
                 indices: np.ndarray, face_shape: np.ndarray,
-                device="cpu") -> Lights:
+                device=None) -> Lights:
     """Build the Lights table from host light descriptions (dicts with
     "type", "position", "direction", "intensity", "radius", "shape").
     Mesh lights get area-weighted triangle CDFs."""
@@ -358,7 +417,7 @@ def make_lights(host_lights: list[dict], positions: np.ndarray,
         return np.concatenate(parts) if parts else np.zeros((0,), dtype)
 
     return Lights.from_arrays(
-        device, type=typ, position=pos, direction=dirn, intensity=inten,
+        default_device(device), type=typ, position=pos, direction=dirn, intensity=inten,
         radius=rad, area=area, shape=shp, tri_offset=tri_off,
         tri_count=tri_cnt, tri_index=cat(tri_idx_all, np.int32),
         tri_cdf=cat(tri_cdf_all, np.float32),

@@ -1,10 +1,14 @@
 """Where one progressive frame of the main path spends its time, on a GPU.
 
-    python -m mcrt_tpu_torch.tools.profile_frame [--out chiprun_out]
+    python -m mcrt_tpu_torch.tools.profile_frame [SCENE] [--out chiprun_out]
 
-It renders ``sphere_field`` (245,764 triangles) through ``Renderer`` at
-512x512, 8 bounces, Sobol, SAH blocks: the main-path configuration of
-``chip_smoke.py``.  After one warm-up frame:
+It renders SCENE through ``Renderer`` at 512x512, 8 bounces, Sobol, SAH
+blocks: one of the main-path configurations of ``chip_smoke.py``, namely
+``sphere_field`` (the default; 245,764 triangles, the visit-list kernels
+K1-K3), ``textured_hall`` (44 textured triangles, the dense kernels K4/K5)
+or ``sphere_field_instanced`` (``sphere_field``'s content as 11 instances
+of one sphere, the two-level kernels K1, K6, K7).  After one warm-up
+frame:
 
 1. Host syncs: one frame under ``torch.cuda.set_sync_debug_mode("warn")``;
    prints every call site in this package that made the host wait for the
@@ -20,7 +24,7 @@ It renders ``sphere_field`` (245,764 triangles) through ``Renderer`` at
    the wall time, the device time (the summed duration of every event that
    ran on the card: kernels, copies, fills) and the busy share, and the
    kernels with the most device time.  The full table goes to
-   ``<out>/profile_frame.txt``.
+   ``<out>/profile_frame_<SCENE>.txt``.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 SIZE, DEPTH, FRAMES = 512, 8, 5
+SCENES = ("sphere_field", "textured_hall", "sphere_field_instanced")
 
 
 def sync_sites(fn) -> collections.Counter:
@@ -68,6 +73,7 @@ def sync_sites(fn) -> collections.Counter:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("scene", nargs="?", default="sphere_field", choices=SCENES)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -82,18 +88,20 @@ def main(argv=None) -> int:
                           SamplerConfig, SamplerType)
     from ..integrators import path
     from ..renderer import Renderer
-    from ..scene.builders import sphere_field
+    from ..scene import builders
 
     device = torch.device("cuda", 0)
     cfg = RenderConfig(width=SIZE, height=SIZE, spp=FRAMES + 5,
                        sampler=SamplerConfig(type=SamplerType.SOBOL),
                        bvh=BVHConfig(builder=BuilderType.SAH),
                        integrator=IntegratorConfig(max_depth=DEPTH))
-    scene, camera = sphere_field(device=device)
+    scene, camera = getattr(builders, args.scene)(device=device)
     renderer = Renderer(scene, camera, cfg, device=device)
     accel = renderer.intersector.accel
-    print(f"{int(scene.geometry.face_valid.sum())} triangles, {accel.num_blocks} "
-          f"blocks, builder {accel.builder}, {SIZE}^2, {DEPTH} bounces")
+    blocks = getattr(accel, "blas", accel)
+    print(f"{args.scene}: {int(scene.geometry.face_valid.sum())} triangles in the face "
+          f"table, {type(accel).__name__} of {blocks.num_blocks} blocks, builder "
+          f"{blocks.builder}, {SIZE}^2, {DEPTH} bounces")
     renderer.step(1)
     torch.cuda.synchronize()
 
@@ -173,7 +181,7 @@ def main(argv=None) -> int:
     sort_by = ("self_device_time_total" if hasattr(table[0], "self_device_time_total")
                else "self_cuda_time_total")
     os.makedirs(args.out, exist_ok=True)
-    path_out = os.path.join(args.out, "profile_frame.txt")
+    path_out = os.path.join(args.out, f"profile_frame_{args.scene}.txt")
     with open(path_out, "w") as f:
         f.write(table.table(sort_by=sort_by, row_limit=200))
     print(f"[profile] full table: {path_out}")

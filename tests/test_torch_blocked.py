@@ -38,11 +38,15 @@ TABLES = ("tri", "aabb", "slot_prim", "bounds", "chunk_aabb")
 
 
 def port_scene(jscene):
-    """The JAX scene's leaves as numpy arrays, crossed over through
-    ``interop.scene_from_numpy``."""
+    """The JAX scene's leaves as numpy arrays (and an instance registry's
+    static face ranges), crossed over through ``interop.scene_from_numpy``
+    onto the CPU."""
     leaves, _ = jax.tree_util.tree_flatten_with_path(jscene)
-    return interop.scene_from_numpy(
-        {jax.tree_util.keystr(p).lstrip("."): np.asarray(v) for p, v in leaves})
+    arrays = {jax.tree_util.keystr(p).lstrip("."): np.asarray(v) for p, v in leaves}
+    if jscene.instances is not None:
+        arrays["instances.face_lo"] = np.asarray(jscene.instances.face_lo)
+        arrays["instances.face_hi"] = np.asarray(jscene.instances.face_hi)
+    return interop.scene_from_numpy(arrays, device="cpu")
 
 
 def random_ray_arrays(jscene, n, seed):
@@ -207,7 +211,8 @@ def test_plain_walks_do_not_depend_on_tile_and_group(case, tile, group):
 def test_interop_accel_gives_the_same_hits(case):
     _, jscene, jacc, tscene, tacc = case
     crossed = interop.blocked_accel_from_numpy(
-        *(np.asarray(getattr(jacc, k)) for k in TABLES), num_blocks=jacc.num_blocks)
+        *(np.asarray(getattr(jacc, k)) for k in TABLES), num_blocks=jacc.num_blocks,
+        device="cpu")
     _, tr = both_rays(random_ray_arrays(jscene, 300, seed=8))
     a = tb.intersect_blocked(tscene.geometry, crossed, tr)
     b = tb.intersect_blocked(tscene.geometry, tacc, tr)
@@ -247,7 +252,7 @@ def test_wrappers_take_plain_versions_on_cpu_only(case):
     kernels.reset_launch_counts()
     tb.intersect_blocked(tscene.geometry, tacc, tr)
     tb.occluded_blocked(tscene.geometry, tacc, tr)
-    assert kernels.launch_counts() == {"K1": 0, "K2": 0, "K3": 0}
+    assert not any(kernels.launch_counts().values())
     packed, _ = tb._sorted_table(tr, tacc, True)
     counts, lists, tn = tb.lists_from_keys(tb.cull_plain(packed, tacc.chunk_aabb, tacc.aabb))
     for dev in ("cpu", "meta"):
@@ -258,4 +263,4 @@ def test_wrappers_take_plain_versions_on_cpu_only(case):
             kernels.closest(c, p, ls, t, tri, tb.TILE, tb.GROUP)
         with pytest.raises(ValueError, match="CUDA"):
             kernels.occluded(c, p, ls, tri, tb.TILE, tb.GROUP)
-    assert kernels.launch_counts() == {"K1": 0, "K2": 0, "K3": 0}
+    assert not any(kernels.launch_counts().values())

@@ -1,4 +1,4 @@
-"""Kernels K1-K3 on the card against their plain PyTorch versions, and the
+"""Kernels K1-K7 on the card against their plain PyTorch versions, and the
 contract of ``chip_smoke.py`` where there is no card.
 
 This file imports no JAX, so its card tests run on a machine with a GPU and
@@ -23,8 +23,9 @@ import torch
 
 from mcrt_tpu_torch.accel import blocked as tb
 from mcrt_tpu_torch.accel import kernels
+from mcrt_tpu_torch.accel import two_level as ttl
 from mcrt_tpu_torch.core.types import Rays
-from mcrt_tpu_torch.scene.builders import glass_gallery
+from mcrt_tpu_torch.scene.builders import cornell_box, glass_gallery, instanced_boxes
 
 # The tier-1 run spreads test files over several worker processes on a few
 # cores: one torch thread per process keeps OpenMP from oversubscribing
@@ -46,6 +47,13 @@ def cuda_device():
 def gallery_cuda(cuda_device):
     scene, _ = glass_gallery(device=cuda_device)
     return scene, tb.build_blocked(scene.geometry)
+
+
+@pytest.fixture(scope="module")
+def boxes_cuda(cuda_device):
+    scene, _ = instanced_boxes(3, device=cuda_device)
+    return scene, ttl.build_two_level_scene(scene.geometry, scene.shapes.to_world,
+                                            scene.instances)
 
 
 def _rays(n, seed, device):
@@ -78,7 +86,7 @@ def test_kernels_match_plain_versions(gallery_cuda, tile, group):
     assert torch.equal(b_k, tb.occluded_plain(counts, packed, lists, acc.tri, tile, group))
     torch.cuda.synchronize()
     after = kernels.launch_counts()
-    assert {k: after[k] - before[k] for k in after} == {"K1": 1, "K2": 1, "K3": 1}
+    assert {k: after[k] - before[k] for k in ("K1", "K2", "K3")} == {"K1": 1, "K2": 1, "K3": 1}
     assert int(hit.sum()) > 100 and int(b_k.sum()) > 100
 
 
@@ -113,10 +121,104 @@ def test_wrappers_refuse_bad_inputs(gallery_cuda):
 
 
 @pytest.mark.cuda
+def _check_closest(kern, plain):
+    (t_k, s_k, *i_k), (t_p, s_p, *i_p) = kern, plain
+    assert torch.equal(s_k, s_p)
+    for a, b in zip(i_k, i_p):
+        assert torch.equal(a, b)
+    hit = s_k >= 0
+    torch.testing.assert_close(t_k[hit], t_p[hit], rtol=1e-5, atol=0.0)
+    return int(hit.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 8])
+def test_dense_kernels_match_plain_versions(gallery_cuda, blocks):
+    """K4/K5 on ``cornell_box``'s 1-block table and on the largest (8-block)
+    dense table, the first 1,024 slots of ``glass_gallery``'s, with a ragged
+    end: 4,992 padded rays are not a multiple of the 256-ray CTA."""
+    _, acc = gallery_cuda
+    if blocks == 1:
+        acc = tb.build_blocked(cornell_box(device=acc.tri.device)[0].geometry)
+    tri = acc.tri[:, :blocks * 128].contiguous()
+    packed = tb._pack_table(tb._ray_table(_rays(4900, seed=blocks, device=acc.tri.device)))
+    assert packed.shape[1] == 4992
+    before = kernels.launch_counts()
+    hits = _check_closest(kernels.dense_closest(packed, tri), tb.dense_closest_plain(packed, tri))
+    b_k = kernels.dense_any(packed, tri)
+    assert torch.equal(b_k, tb.dense_any_plain(packed, tri))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in ("K4", "K5")} == {"K4": 1, "K5": 1}
+    assert hits > 20 and int(b_k.sum()) > 20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile, group", [(128, 4), (256, 1), (64, 3)])
+def test_two_level_kernels_match_plain_versions(boxes_cuda, tile, group):
+    _, acc = boxes_cuda
+    rays = _rays(5000, seed=tile + group, device=acc.blas.tri.device)
+    packed, _ = tb._sorted_table(rays, acc, True)
+    keys = kernels.cull(packed, acc.pair_chunk, acc.pair_aabb, tile)
+    assert torch.equal(keys, tb.cull_plain(packed, acc.pair_chunk, acc.pair_aabb, tile))
+    counts, lists, tn = tb.lists_from_keys(keys)
+    args = (acc.blas.tri, acc.pair_code, acc.tw_rows, tile, group)
+    before = kernels.launch_counts()
+    hits = _check_closest(kernels.closest2(counts, packed, lists, tn, *args),
+                          ttl.closest2_plain(counts, packed, lists, tn, *args))
+    b_k = kernels.occluded2(counts, packed, lists, *args)
+    assert torch.equal(b_k, ttl.occluded2_plain(counts, packed, lists, *args))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in ("K6", "K7")} == {"K6": 1, "K7": 1}
+    assert hits > 100 and int(b_k.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_nan_poisoned_pair_box_is_never_entered_on_the_card(boxes_cuda):
+    """A NaN-poisoned (instance, block) pair box gets key BIG from every
+    tile, so no pair list holds it."""
+    _, acc = boxes_cuda
+    p = 3
+    lo, hi = acc.pair_aabb[p, 0:3], acc.pair_aabb[p, 3:6]
+    n = 512
+    g = torch.Generator(device=lo.device).manual_seed(0)
+    target = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=lo.device)
+    o = (acc.bounds[1] + 1.0).expand(n, 3).contiguous()
+    d = target - o
+    packed = tb._pack_table(tb._ray_table(Rays.make(o, d / d.norm(dim=1, keepdim=True))))
+    assert (kernels.cull(packed, acc.pair_chunk, acc.pair_aabb, tb.TILE)[:, p] < tb.BIG).all()
+    poisoned = acc.pair_aabb.clone()
+    poisoned[p, 0:6] = float("nan")
+    keys = kernels.cull(packed, acc.pair_chunk, poisoned, tb.TILE)
+    assert (keys[:, p] == tb.BIG).all()
+    counts, lists, _ = tb.lists_from_keys(keys)
+    for row, c in zip(lists.cpu(), counts.cpu()):
+        assert p not in row[:int(c)].tolist()
+
+
+@pytest.mark.cuda
+def test_new_wrappers_refuse_bad_inputs(gallery_cuda, boxes_cuda):
+    _, acc = gallery_cuda
+    packed = tb._pack_table(tb._ray_table(_rays(256, seed=1, device=acc.tri.device)))
+    with pytest.raises(ValueError, match="1024"):
+        kernels.dense_closest(packed, acc.tri[:, :9 * 128].contiguous())
+    with pytest.raises(TypeError):
+        kernels.dense_any(packed, acc.tri[:, :128].double())
+    _, two = boxes_cuda
+    counts, lists, tn = ttl.pair_lists(packed, two)
+    with pytest.raises(TypeError):
+        kernels.closest2(counts, packed, lists, tn, two.blas.tri, two.pair_code.long(),
+                         two.tw_rows, tb.TILE, tb.GROUP)
+    with pytest.raises(ValueError, match="tw_rows"):
+        kernels.occluded2(counts, packed, lists, two.blas.tri, two.pair_code,
+                          two.tw_rows[:-1], tb.TILE, tb.GROUP)
+
+
+@pytest.mark.cuda
 def test_cuda_render_matches_cpu_render(cuda_device):
     from mcrt_tpu_torch import Renderer
     from mcrt_tpu_torch.config import IntegratorConfig, RenderConfig, SamplerConfig, SamplerType
-    from mcrt_tpu_torch.scene.builders import cornell_box
 
     cfg = RenderConfig(width=24, height=24, sampler=SamplerConfig(type=SamplerType.SOBOL),
                        integrator=IntegratorConfig(max_depth=3))

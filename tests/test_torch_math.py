@@ -161,7 +161,7 @@ def test_accumulate_matches_jax():
 @pytest.mark.parametrize("frame", [0, 1, 2, 7, 63, 1000, 123457])
 def test_frame_jitter_is_bit_equal(frame):
     j = np.asarray(jrend.frame_jitter(jnp.asarray(frame, jnp.int32)))
-    t = trend.frame_jitter(frame).numpy()
+    t = trend.frame_jitter(frame, device="cpu").numpy()
     np.testing.assert_array_equal(t.view(np.int32), j.view(np.int32))
 
 
@@ -178,14 +178,14 @@ def test_pixel_uv_and_camera_rays_match_jax():
     kw = dict(eye=(0.3, 1.1, 3.4), target=(0.0, 0.9, 0.0), fov_deg=41.0,
               aspect=w / h)
     jc = jcam.PinholeCamera.look_at(**kw)
-    tc = tcam.PinholeCamera.look_at(**kw)
+    tc = tcam.PinholeCamera.look_at(**kw, device="cpu")
     for name in ("position", "c00", "c10", "c01", "c11", "forward", "area",
                  "tan_half_fov", "right", "up"):
         np.testing.assert_allclose(getattr(tc, name).numpy(),
                                    np.asarray(getattr(jc, name)), **TOL, err_msg=name)
     jit = np.asarray([0.21, -0.37], np.float32)
     juv = jcam.pixel_uv(w, h, jitter=jnp.asarray(jit)[None, :])
-    tuv = tcam.pixel_uv(w, h, jitter=torch.from_numpy(jit)[None, :])
+    tuv = tcam.pixel_uv(w, h, jitter=torch.from_numpy(jit)[None, :], device="cpu")
     np.testing.assert_allclose(tuv.numpy(), np.asarray(juv), **TOL)
     jo, jd = jc.generate_rays(juv)
     to, td = tc.generate_rays(tuv)

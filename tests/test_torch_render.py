@@ -27,9 +27,11 @@ from mcrt_tpu.config import SamplerConfig as JSamplerConfig
 from mcrt_tpu.config import SamplerType as JSamplerType
 from mcrt_tpu.scene import builders as jb
 from mcrt_tpu_torch import Renderer, interop
+from mcrt_tpu_torch.camera.pinhole import PinholeCamera, pixel_uv
 from mcrt_tpu_torch.config import (AccelType, BuilderType, BVHConfig, DenoiseConfig,
                                    IntegratorConfig, IntegratorType, RenderConfig,
-                                   SamplerConfig, SamplerType)
+                                   SamplerConfig, SamplerType, ToneMapConfig)
+from mcrt_tpu_torch.renderer import frame_jitter
 from mcrt_tpu_torch.scene import builders as tbuild
 from tests.test_torch_blocked import port_scene
 
@@ -46,7 +48,7 @@ MIN_AGREE = 0.99
 def _camera(jcam):
     leaves, _ = jax.tree_util.tree_flatten_with_path(jcam)
     return interop.camera_from_numpy(
-        {jax.tree_util.keystr(p).lstrip("."): np.asarray(v) for p, v in leaves})
+        {jax.tree_util.keystr(p).lstrip("."): np.asarray(v) for p, v in leaves}, device="cpu")
 
 
 def _render_both(name, size=SIZE, spp=SPP, **integrator):
@@ -107,7 +109,7 @@ def test_port_builders_match_interop_scene(name):
     builds (so ``chip_smoke.py``, which has no JAX, renders the same)."""
     jscene, jcam = getattr(jb, name)()
     crossed, cam = port_scene(jscene), _camera(jcam)
-    own, own_cam = getattr(tbuild, name)()
+    own, own_cam = getattr(tbuild, name)(device="cpu")
     for group in ("geometry", "materials", "lights"):
         for field, v in vars(getattr(crossed, group)).items():
             if isinstance(v, torch.Tensor):
@@ -142,7 +144,7 @@ def test_sphere_field_matches_jax_builders_and_renders():
     builders, and the port renders it as the JAX package does (16x16, 1 spp,
     at least 99% of pixels within rtol 1e-3 / atol 1e-4)."""
     jscene = _jax_sphere_field(1)
-    own, cam = tbuild.sphere_field(subdiv=1)
+    own, cam = tbuild.sphere_field(subdiv=1, device="cpu")
     assert int(own.geometry.face_valid.sum()) == 12 * 20 * 4 + 4
     crossed = port_scene(jscene)
     for group in ("geometry", "materials", "lights"):
@@ -158,7 +160,7 @@ def test_sphere_field_matches_jax_builders_and_renders():
         integrator=JIntegratorConfig(max_depth=DEPTH))).render())
     timg = Renderer(own, cam, RenderConfig(
         width=16, height=16, spp=1, sampler=SamplerConfig(type=SamplerType.SOBOL),
-        integrator=IntegratorConfig(max_depth=DEPTH))).render().numpy()
+        integrator=IntegratorConfig(max_depth=DEPTH)), device="cpu").render().numpy()
     assert _agreement(timg, jimg) >= MIN_AGREE and timg.mean() > 0.0
 
 
@@ -174,7 +176,7 @@ def test_port_imports_and_renders_without_jax():
         "    importlib.import_module(m.name)",
         "from mcrt_tpu_torch import Renderer, RenderConfig",
         "from mcrt_tpu_torch.scene.builders import cornell_box",
-        "img = Renderer(*cornell_box(), RenderConfig(width=8, height=8, spp=1),",
+        "img = Renderer(*cornell_box(device='cpu'), RenderConfig(width=8, height=8, spp=1),",
         "               device='cpu').render()",
         "assert img.shape == (8, 8, 3) and bool(img.isfinite().all()), img",
         "print('ok', float(img.mean()))",
@@ -187,7 +189,7 @@ def test_port_imports_and_renders_without_jax():
 
 def test_progressive_controls():
     """``stop_at_spp`` pauses the render, ``update_camera`` resets it."""
-    scene, cam = tbuild.cornell_box()
+    scene, cam = tbuild.cornell_box(device="cpu")
     r = Renderer(scene, cam, RenderConfig(width=8, height=8, stop_at_spp=3), device="cpu")
     r.step(5)
     assert r.accum.frame == 3 and r.stopped()
@@ -201,13 +203,30 @@ def test_progressive_controls():
 
 @pytest.mark.parametrize("change, match", [
     (dict(integrator=IntegratorConfig(type=IntegratorType.BDPT)), "BDPT"),
-    (dict(accel=AccelType.TWO_LEVEL), "two-level"),
+    (dict(tonemap=ToneMapConfig(enabled=True)), "tonemap"),
     (dict(accel=AccelType.BRUTE), "not ported"),
     (dict(accel=AccelType.LBVH), "not ported"),
     (dict(bvh=BVHConfig(builder=BuilderType.SBVH)), "SBVH"),
     (dict(denoise=DenoiseConfig(enabled=True)), "denoise"),
 ])
 def test_unported_options_raise(change, match):
-    scene, cam = tbuild.cornell_box()
+    scene, cam = tbuild.cornell_box(device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        Renderer(scene, cam, RenderConfig(width=8, height=8, **change)).render(1)
+        Renderer(scene, cam, RenderConfig(width=8, height=8, **change),
+                 device="cpu").render(1)
+
+
+def test_entry_points_default_to_the_card():
+    """With no ``device``, the entry points target CUDA: where there is no
+    card they raise, naming ``device="cpu"``, and never run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would run on it")
+    scene, cam = tbuild.cornell_box(device="cpu")
+    cfg = RenderConfig(width=8, height=8, spp=1)
+    calls = [lambda: Renderer(scene, cam, cfg), tbuild.cornell_box,
+             tbuild.textured_hall, lambda: tbuild.instanced_boxes(2),
+             lambda: PinholeCamera.look_at((0, 0, 1), (0, 0, 0)),
+             lambda: pixel_uv(4, 4), lambda: frame_jitter(0)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()

@@ -68,9 +68,9 @@ ZOO_MATERIALS = [
 ]
 
 
-def _zoo(pkg):
+def _zoo(pkg, **device):
     """The zoo scene built by ``pkg``'s own builders (``jb``/``jsc`` or
-    ``tbuild``/``tsc``)."""
+    ``tbuild``/``tsc``, the latter with ``device``)."""
     builders, scene_mod = pkg
     sb = builders.SceneBuffers()
     fp, fi = builders.quad([-6, 0, 6], [6, 0, 6], [6, 0, -6], [-6, 0, -6])
@@ -89,10 +89,10 @@ def _zoo(pkg):
         {"type": scene_mod.LIGHT_DIRECTIONAL, "direction": (0.4, -1.0, -0.3),
          "intensity": (1.0, 0.9, 0.8)},
     ]
-    lights = scene_mod.make_lights(host_lights, positions, indices, face_shape)
+    lights = scene_mod.make_lights(host_lights, positions, indices, face_shape, **device)
     mats = [scene_mod.UberMaterial(**kw) for kw in ZOO_MATERIALS]
     return scene_mod.build_scene(positions, normals, uvs, indices, face_shape, shape_mat,
-                                 mats, lights=lights, shape_light=shape_light)
+                                 mats, lights=lights, shape_light=shape_light, **device)
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +124,7 @@ def test_zoo_hits_every_material(zoo):
 
 def test_port_builders_build_the_same_scene(zoo):
     jscene, tscene = zoo[0], zoo[1]
-    own = _zoo((tbuild, tsc))
+    own = _zoo((tbuild, tsc), device="cpu")
     for group in ("geometry", "shapes", "materials", "lights"):
         for name, field in vars(getattr(tscene, group)).items():
             if isinstance(field, torch.Tensor):
@@ -272,10 +272,3 @@ def test_light_sampling_matches_jax(zoo):
     for name in ("o", "d", "tmin", "tmax"):
         _close(getattr(tr, name), getattr(jr, name), name)
 
-
-def test_textured_scene_is_refused(zoo):
-    _, tscene, *_ = zoo
-    _, ti = _interactions(zoo)
-    textured = tscene.replace(textures=tsc.TextureAtlas(num=2))
-    with pytest.raises(NotImplementedError, match="textures"):
-        tmat.fetch_bsdf(textured, ti)
