@@ -7,11 +7,23 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and exits nonzero; nothing is caught):
 
-0. Set-up: requires ``torch.cuda.is_available()``; builds the intersector
-   kernels K1-K7 from ``mcrt_tpu_torch/csrc`` with nvcc (one process per
-   source, started together); prints the card's name and power limit as
+0. Set-up: requires ``torch.cuda.is_available()``; builds the kernels
+   K1-K9 from ``mcrt_tpu_torch/csrc`` with nvcc (one process per source,
+   started together); prints the card's name and power limit as
    nvidia-smi reports them.
-1. Kernels, each against its plain PyTorch version on the card, on a
+1. K8/K9, the card micro-benchmark (``mcrt_tpu_torch/tools/vpu_bench.py``)
+   at its own shapes: K8's float32 and bfloat16 chains on x (256, 1024)
+   must equal ``chain_plain`` bit for bit (the same single roundings); K9
+   at k = 8 and 128 must lie within the dot-product bound
+   ``2 * k * 2**-24 * (|a| @ |b|)`` of ``matmul_plain`` elementwise (the
+   share that is not bit-equal is printed).  Each kernel is timed at
+   ``ITERS`` passes (median of 5) and at ``ITERS // 2``; the ratio must lie
+   in [1.7, 2.3], or the compiler merged the passes.  The plain version is
+   timed for ``ITERS`` calls back to back, the kernel's work; so is
+   ``torch.matmul`` (TF32 off), K9's library yardstick.  Then
+   ``vpu_bench.main()`` runs with the launch counters set to 0 just before
+   and read just after, and must launch K8 and K9.
+2. Kernels, each against its plain PyTorch version on the card, on a
    512x512 wavefront of primary rays and one of random bounce rays, timed
    both ways, with the kernel's bound (below) printed beside its time:
    K1 cull, K2 closest hit and K3 any hit on ``sphere_field`` (~245k
@@ -22,11 +34,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    kernels compute the plain versions' formulas without fused
    multiply-add, in the same order.  The share of differing rays is
    printed as a diagnostic.
-2. Render parity: ``glass_gallery``, ``textured_hall`` and
+3. Render parity: ``glass_gallery``, ``textured_hall`` and
    ``instanced_boxes`` at 64x64, 1 spp, Sobol, max_depth 3, once on the
    card (kernels) and once on the CPU (plain versions) with the same port
    code; at least 99% of pixels must agree to rtol 1e-3 / atol 1e-4.
-3. Main paths through ``Renderer`` at 512x512, 8 bounces, Sobol, SAH
+4. Main paths through ``Renderer`` at 512x512, 8 bounces, Sobol, SAH
    blocks, for a few progressive frames each, with the launch counters set
    to 0 just before and read just after: ``sphere_field`` (must launch
    K1-K3), ``textured_hall`` (K4/K5, and not K1-K3) and
@@ -41,24 +53,28 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
-float32 outside the tensor cores) and its bytes (each input read once,
+float32 outside the tensor cores; 133.8 TFLOP/s for K8's bfloat16 chain,
+the Hopper white paper's H100 SXM5 bfloat16 rate outside the tensor cores)
+and its bytes (each input read once,
 each output written once) over 3.35 TB/s.  Operations: 25 a slab test,
 54 a Moller-Trumbore test, 48 a slot staged into world space (K6/K7); the
 tests are counted from the plain versions' loops (``cull_tests``,
-``walk_tests``, ``dense_tests``).  No single PyTorch call computes a
-ray-triangle traversal, so ``library_ms`` is null for every kernel.
+``walk_tests``, ``dense_tests``); K8 counts 5 a round of its chain and K9
+2 a multiply-add, as ``tools/vpu_bench.py`` counts them.  No single
+PyTorch call computes a ray-triangle traversal or K8's chain, so
+``library_ms`` is null for every kernel but K9 (``torch.matmul``).
 
 The second-to-last stdout line is the per-kernel JSON record (``ms``,
 ``plain_ms`` and ``bound_ms`` there are the bounce wavefront's, the shape
-of seven of a main path's eight bounces; ``launches`` are the counts of
-the main path that runs the kernel; the log lines give both wavefronts),
+of seven of a main path's eight bounces, K8's float32 chain's and K9's at
+k = 128; ``launches`` are the counts of the main path that runs the
+kernel, ``vpu_bench.main()`` for K8/K9; the log lines give every variant),
 the last one ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -70,8 +86,10 @@ PLAIN_REPS = 2
 PARITY_MIN_SHARE = 0.99
 INSTANCED_MEAN_RTOL = 0.01
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_BF16 = 133.8e12  # H100 SXM5 bfloat16 outside the tensor cores (Hopper white paper)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 OPS_SLAB, OPS_MT, OPS_STAGE = 25, 54, 48
+ITERS_RATIO = (1.7, 2.3)  # time(ITERS) / time(ITERS // 2) of K8/K9
 KERNELS = {  # id: (name, source, the TPU kernel it replaces)
     "K1": ("cull", "mcrt_tpu_torch/csrc/blocked.cu", "mcrt_tpu/accel/pallas_blocked.py:551"),
     "K2": ("closest", "mcrt_tpu_torch/csrc/blocked.cu", "mcrt_tpu/accel/pallas_blocked.py:733"),
@@ -81,18 +99,13 @@ KERNELS = {  # id: (name, source, the TPU kernel it replaces)
     "K5": ("dense_any", "mcrt_tpu_torch/csrc/dense.cu", "mcrt_tpu/accel/pallas_blocked.py:879"),
     "K6": ("closest2", "mcrt_tpu_torch/csrc/two_level.cu", "mcrt_tpu/accel/two_level.py:423"),
     "K7": ("occluded2", "mcrt_tpu_torch/csrc/two_level.cu", "mcrt_tpu/accel/two_level.py:491"),
+    "K8": ("vpu_chain", "mcrt_tpu_torch/csrc/vpu.cu", "tools/vpu_bench.py:16"),
+    "K9": ("vpu_matmul", "mcrt_tpu_torch/csrc/vpu.cu", "tools/vpu_bench.py:38"),
 }
 
 
 def log(msg: str):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def timed(fn, reps: int):
@@ -118,9 +131,9 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(ops: int, moved: int):
+def bound(ops: int, moved: int, peak: float = PEAK_FLOPS):
     """(bound ms, "operations" or "bytes")."""
-    ops_ms, bytes_ms = ops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    ops_ms, bytes_ms = ops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -155,12 +168,13 @@ class KernelResults:
     against the plain version."""
 
     def __init__(self):
-        self.rows = {k: {"ms": [], "plain_ms": [], "bound": [], "max_abs_err": 0.0}
-                     for k in KERNELS}
+        self.rows = {k: {"ms": [], "plain_ms": [], "bound": [], "max_abs_err": 0.0,
+                         "library_ms": None} for k in KERNELS}
 
-    def record(self, k, wf, ms, plain_ms, err, ops, moved):
+    def record(self, k, wf, ms, plain_ms, err, ops, moved, peak=PEAK_FLOPS, library_ms=None):
         r = self.rows[k]
-        b_ms, by = bound(ops, moved)
+        b_ms, by = bound(ops, moved, peak)
+        r["library_ms"] = library_ms
         r["ms"].append(ms)
         r["plain_ms"].append(plain_ms)
         r["bound"].append((b_ms, by))
@@ -221,6 +235,88 @@ def cull_and_check(res, wf, packed, chunk, boxes, k_id="K1"):
     log(f"[kernels:{wf}] {int((packed[7] > packed[6]).sum())} live rays, "
         f"{int(counts.sum())} visits over {counts.numel()} tiles")
     return counts, lists, tn_sorted
+
+
+def vpu_kernels(res, device):
+    """K8/K9 against their plain versions, timed at ITERS and ITERS // 2;
+    then ``vpu_bench.main()``, the path that runs them, with the launch
+    counters set to 0 just before; returns its launch counts."""
+    import torch
+
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.tools import vpu_bench as vb
+
+    def iters_ratio(k, label, full_ms, half_ms):
+        ratio = full_ms / half_ms
+        log(f"[vpu] {k} {label}: {full_ms:.3f} ms at {vb.ITERS} passes, {half_ms:.3f} ms at "
+            f"{vb.ITERS // 2}, ratio {ratio:.3f} (must lie in {list(ITERS_RATIO)})")
+        if not ITERS_RATIO[0] <= ratio <= ITERS_RATIO[1]:
+            raise AssertionError(f"{k} {label}: time does not follow the pass count "
+                                 f"(ratio {ratio:.3f}): were the passes merged?")
+
+    def repeated(fn):
+        """``fn`` called ``ITERS`` times back to back; returns the last result."""
+        def run():
+            for _ in range(vb.ITERS):
+                out = fn()
+            return out
+        return run
+
+    x = vb.chain_input(device)
+    # the float32 chain is recorded last: the JSON row carries the last record
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FLOPS)):
+        label = str(dtype).split(".")[-1]
+        ms, _, out = timed(lambda: vb.run_chain(x, dtype), KERNEL_REPS)
+        half, _, _ = timed(lambda: vb.run_chain(x, dtype, vb.ITERS // 2), KERNEL_REPS)
+        iters_ratio("K8", label, ms, half)
+        vb.chain_plain(x, dtype)  # warm-up
+        pms, _, plain = timed(repeated(lambda: vb.chain_plain(x, dtype)), 1)
+        view = torch.int32 if dtype == torch.float32 else torch.int16
+        share = (out.view(view) != plain.view(view)).float().mean().item()
+        err = (out.float() - plain.float()).abs().max().item()
+        log(f"[vpu] K8 {label}: differing share {share:.2e}, max |diff| {err:.3e}, "
+            f"|out| up to {out.float().abs().max().item():.4e}; plain x{vb.ITERS} back to back "
+            f"{pms:.3f} ms")
+        if share or not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"K8 {label} differs from chain_plain: share {share:.2e}")
+        ops = vb.ITERS * vb.ROUNDS * 5 * x.numel()
+        res.record("K8", label, ms, pms, err, ops, 2 * nbytes(out), peak)
+        log(f"[vpu] K8 {label}: {ops / (ms / 1e3) / 1e12:.3f} Tops/s sustained")
+    for k in vb.KS:
+        a, b = vb.matmul_inputs(device, k)
+        ms, _, out = timed(lambda: vb.run_matmul(a, b), KERNEL_REPS)
+        half, _, _ = timed(lambda: vb.run_matmul(a, b, vb.ITERS // 2), KERNEL_REPS)
+        iters_ratio("K9", f"k={k}", ms, half)
+        vb.matmul_plain(a, b)  # warm-up
+        pms, _, plain = timed(repeated(lambda: vb.matmul_plain(a, b)), 1)
+        torch.matmul(a, b)  # warm-up
+        lib_ms, _, _ = timed(repeated(lambda: torch.matmul(a, b)), 1)
+        tol = 2 * k * 2.0**-24 * (a.double().abs() @ b.double().abs())
+        diff = (out.double() - plain.double()).abs()
+        share = (out.view(torch.int32) != plain.view(torch.int32)).float().mean().item()
+        err = diff.max().item()
+        log(f"[vpu] K9 k={k}: max |diff| {err:.3e} (dot bound up to {tol.max().item():.3e}), "
+            f"not bit-equal share {share:.2e}; x{vb.ITERS} back to back: plain {pms:.3f} ms, "
+            f"torch.matmul {lib_ms:.3f} ms")
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"K9 k={k} leaves the dot-product bound of matmul_plain")
+        fl = vb.ITERS * 2 * a.shape[0] * k * b.shape[1]
+        res.record("K9", f"k={k}", ms, pms, err, fl, nbytes(a, b, out),
+                   library_ms=lib_ms)
+        log(f"[vpu] K9 k={k}: {fl / (ms / 1e3) / 1e12:.3f} TF/s sustained "
+            f"(torch.matmul {fl / (lib_ms / 1e3) / 1e12:.3f} TF/s)")
+
+    kernels.reset_launch_counts()
+    rc = vb.main([])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"[vpu] vpu_bench.main() returned {rc}, launches {counts}")
+    if rc != 0:
+        raise AssertionError(f"vpu_bench.main() returned {rc}")
+    missing = [k for k in ("K8", "K9") if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"vpu_bench.main() did not launch {missing}")
+    return counts
 
 
 def visit_list_kernels(res, device):
@@ -368,6 +464,7 @@ def main_path_phase(label, scene, camera, device, expect, forbid):
     from mcrt_tpu_torch.config import (BuilderType, BVHConfig, IntegratorConfig,
                                        RenderConfig, SamplerConfig, SamplerType)
     from mcrt_tpu_torch.tools.profile_frame import sync_sites
+    from mcrt_tpu_torch.tools.card import card_line
 
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=MAIN_FRAMES + 2,
                        sampler=SamplerConfig(type=SamplerType.SOBOL),
@@ -442,6 +539,7 @@ def main() -> int:
     import mcrt_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from mcrt_tpu_torch.accel import kernels
     from mcrt_tpu_torch.scene.builders import sphere_field_instanced, textured_hall
+    from mcrt_tpu_torch.tools.card import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -457,6 +555,7 @@ def main() -> int:
 
     res = KernelResults()
     with torch.no_grad():
+        vpu_counts = vpu_kernels(res, device)
         scene, camera = visit_list_kernels(res, device)
         dense_kernels(res, device)
         two_level_kernels(res, device)
@@ -477,15 +576,17 @@ def main() -> int:
 
     path_of = {"K1": "main", "K2": "main", "K3": "main", "K4": "dense", "K5": "dense",
                "K6": "instanced", "K7": "instanced"}
+    launches = {k: paths[p][0][k] for k, p in path_of.items()}
+    launches.update(K8=vpu_counts["K8"], K9=vpu_counts["K9"])
     kernel_rows = []
     for k, (name, source, replaces) in KERNELS.items():
         r = res.rows[k]
         b_ms, by = r["bound"][-1]
         kernel_rows.append({
             "name": f"{k} {name}", "route": "cuda", "source": source, "replaces": replaces,
-            "launches": paths[path_of[k]][0][k], "max_abs_err": r["max_abs_err"],
+            "launches": launches[k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"][-1], "plain_ms": r["plain_ms"][-1], "bound_ms": b_ms,
-            "bound_by": by, "library_ms": None})
+            "bound_by": by, "library_ms": r["library_ms"]})
     log("[paths] card: " + card_line() + "; " + "; ".join(
         f"{label} {v[1]:.2f} ms/spp, {v[2]:.4e} rays/s" for label, v in paths.items()))
     print(json.dumps({"kernels": kernel_rows}), flush=True)

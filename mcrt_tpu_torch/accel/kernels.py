@@ -1,7 +1,8 @@
-"""Wrappers for the intersector's CUDA kernels: K1 cull, K2 closest hit and
-K3 any hit of the blocked visit-list walk (``csrc/blocked.cu``), K4/K5 of
-the dense small-scene path (``csrc/dense.cu``) and K6/K7 of the two-level
-instanced walk (``csrc/two_level.cu``).
+"""Wrappers for the port's CUDA kernels: K1 cull, K2 closest hit and K3 any
+hit of the blocked visit-list walk (``csrc/blocked.cu``), K4/K5 of the
+dense small-scene path (``csrc/dense.cu``), K6/K7 of the two-level
+instanced walk (``csrc/two_level.cu``), and the card micro-benchmark's K8
+elementwise chain and K9 small-K matrix product (``csrc/vpu.cu``).
 
 The sources are compiled at first use with nvcc, one process per source
 started together, and linked into one shared library with a plain C
@@ -12,9 +13,9 @@ The wrappers take CUDA tensors only: each checks device, dtype, shape and
 contiguity, allocates the outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and raises if the launch reports an error;
 there is no fallback.  The kernels' plain PyTorch versions, and the choice
-between kernel and plain version by the rays' device, are in
-``blocked.py`` and ``two_level.py``.  ``<wrapper>.launches`` counts the
-kernel's launches.
+between kernel and plain version by the input's device, are in
+``blocked.py``, ``two_level.py`` and ``tools/vpu_bench.py``.
+``<wrapper>.launches`` counts the kernel's launches.
 
 ctypes: every pointer and the stream go as ``c_void_p`` and
 every int as ``c_int``; a default ctypes argument is a 32-bit int and would
@@ -36,7 +37,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _HEADERS = ("blocked.cuh",)
-_UNITS = ("blocked.cu", "dense.cu", "two_level.cu")
+_UNITS = ("blocked.cu", "dense.cu", "two_level.cu", "vpu.cu")
 _SOURCES = _HEADERS + _UNITS
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # Float contraction: -fmad=false and no --use_fast_math, so
@@ -54,8 +55,8 @@ def _nvcc() -> str:
     cuda_nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     if os.path.exists(cuda_nvcc):
         return cuda_nvcc
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the blocked-intersector "
-                       "kernels need the CUDA toolkit")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the port's kernels "
+                       "need the CUDA toolkit")
 
 
 def _source_hash() -> str:
@@ -129,9 +130,13 @@ class _KernelLibrary:
         lib.mcrt_dense_any.argtypes = [p, p, p, i, i, p]
         lib.mcrt_closest2.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.mcrt_occluded2.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.mcrt_vpu_chain_f32.argtypes = [p, p, i, i, p]
+        lib.mcrt_vpu_chain_bf16.argtypes = [p, p, i, i, p]
+        lib.mcrt_vpu_matmul.argtypes = [p, p, p, i, i, p]
         for fn in (lib.mcrt_cull, lib.mcrt_closest, lib.mcrt_occluded,
                    lib.mcrt_dense_closest, lib.mcrt_dense_any, lib.mcrt_closest2,
-                   lib.mcrt_occluded2):
+                   lib.mcrt_occluded2, lib.mcrt_vpu_chain_f32, lib.mcrt_vpu_chain_bf16,
+                   lib.mcrt_vpu_matmul):
             fn.restype = ctypes.c_int
         return lib
 
@@ -345,8 +350,54 @@ def occluded2(counts, rays_packed, lists, tri, pair_code, tw_rows, tile: int,
     return out
 
 
+def _check_iters(iters: int):
+    if not 1 <= iters <= 2**30:
+        raise ValueError(f"iters {iters} must be in [1, 2**30]")
+
+
+def vpu_chain(x: torch.Tensor, iters: int) -> torch.Tensor:
+    """K8: the elementwise chain of ``tools/vpu_bench.py`` (20 rounds of
+    multiply-add, min and abs-subtract) on a (256, 1024) float32 or
+    bfloat16 tensor, computed ``iters`` times; returns one pass's result
+    (replaces ``tools/vpu_bench.py:chain_kernel``)."""
+    dev = _cuda_device(x)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x has dtype {x.dtype}, expected float32 or bfloat16")
+    _require(x, "x", x.dtype, (256, 1024), dev)
+    if x.data_ptr() % 4:  # the kernels read and write 4-byte words
+        raise ValueError("x must start on a 4-byte boundary")
+    _check_iters(iters)
+    out = torch.empty_like(x)
+    fn = (LIBRARY.get().mcrt_vpu_chain_f32 if x.dtype == torch.float32
+          else LIBRARY.get().mcrt_vpu_chain_bf16)
+    err = fn(x.data_ptr(), out.data_ptr(), x.numel(), iters, _stream(dev))
+    vpu_chain.launches += 1
+    _check_launch(err, "K8 vpu_chain")
+    return out
+
+
+def vpu_matmul(a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """K9: (512, 1024) float32 a @ b for a (512, k), b (k, 1024), 1 <= k <= 128,
+    each output accumulated in k order with single-rounded multiply-adds,
+    computed ``iters`` times (replaces ``tools/vpu_bench.py:matmul_kernel``)."""
+    dev = _cuda_device(a)
+    k = a.shape[1] if a.dim() == 2 else 0
+    if not 1 <= k <= 128:
+        raise ValueError(f"a has shape {tuple(a.shape)}, expected (512, k), 1 <= k <= 128")
+    _require(a, "a", torch.float32, (512, k), dev)
+    _require(b, "b", torch.float32, (k, 1024), dev)
+    _check_iters(iters)
+    out = torch.empty((512, 1024), dtype=torch.float32, device=dev)
+    err = LIBRARY.get().mcrt_vpu_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(), k, iters,
+                                        _stream(dev))
+    vpu_matmul.launches += 1
+    _check_launch(err, "K9 vpu_matmul")
+    return out
+
+
 WRAPPERS = {"K1": cull, "K2": closest, "K3": occluded, "K4": dense_closest,
-            "K5": dense_any, "K6": closest2, "K7": occluded2}
+            "K5": dense_any, "K6": closest2, "K7": occluded2, "K8": vpu_chain,
+            "K9": vpu_matmul}
 for _w in WRAPPERS.values():
     _w.launches = 0
 

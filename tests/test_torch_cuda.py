@@ -1,4 +1,4 @@
-"""Kernels K1-K7 on the card against their plain PyTorch versions, and the
+"""Kernels K1-K9 on the card against their plain PyTorch versions, and the
 contract of ``chip_smoke.py`` where there is no card.
 
 This file imports no JAX, so its card tests run on a machine with a GPU and
@@ -10,7 +10,10 @@ no JAX installed (the repository's ``conftest.py`` imports JAX, hence
 Tests marked ``cuda`` skip themselves where ``torch.cuda.is_available()`` is
 false.  Tolerances: cull keys and any-hit flags are equal (the kernels use
 the plain versions' formulas without fused multiply-add); closest-hit
-flags and slots are equal and distances agree to rtol 1e-5.
+flags and slots are equal and distances agree to rtol 1e-5; the K8 chains
+are bit-equal to ``chain_plain`` (the same single roundings) and the K9
+products lie within the dot-product bound ``2 * k * 2**-24 * (|a| @ |b|)``
+of ``matmul_plain``.
 """
 import os
 import shutil
@@ -26,6 +29,7 @@ from mcrt_tpu_torch.accel import kernels
 from mcrt_tpu_torch.accel import two_level as ttl
 from mcrt_tpu_torch.core.types import Rays
 from mcrt_tpu_torch.scene.builders import cornell_box, glass_gallery, instanced_boxes
+from mcrt_tpu_torch.tools import vpu_bench
 
 # The tier-1 run spreads test files over several worker processes on a few
 # cores: one torch thread per process keeps OpenMP from oversubscribing
@@ -213,6 +217,60 @@ def test_new_wrappers_refuse_bad_inputs(gallery_cuda, boxes_cuda):
     with pytest.raises(ValueError, match="tw_rows"):
         kernels.occluded2(counts, packed, lists, two.blas.tri, two.pair_code,
                           two.tw_rows[:-1], tb.TILE, tb.GROUP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vpu_chain_equals_plain_version(cuda_device, dtype):
+    x = vpu_bench.chain_input(cuda_device)
+    before = kernels.launch_counts()["K8"]
+    out = vpu_bench.run_chain(x, dtype, iters=3)
+    plain = vpu_bench.chain_plain(x, dtype)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["K8"] == before + 1
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    assert out.dtype == dtype and torch.equal(out.view(view), plain.view(view))
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", vpu_bench.KS)
+def test_vpu_matmul_within_dot_bound_of_plain_version(cuda_device, k):
+    a, b = vpu_bench.matmul_inputs(cuda_device, k)
+    before = kernels.launch_counts()["K9"]
+    out = vpu_bench.run_matmul(a, b, iters=3)
+    plain = vpu_bench.matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["K9"] == before + 1
+    tol = 2 * k * 2.0**-24 * (a.double().abs() @ b.double().abs())
+    assert bool(((out.double() - plain.double()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_vpu_wrappers_refuse_bad_inputs(cuda_device):
+    x = vpu_bench.chain_input(cuda_device)
+    with pytest.raises(ValueError):
+        kernels.vpu_chain(x.cpu(), 2)
+    with pytest.raises(ValueError):
+        kernels.vpu_chain(x[:128].contiguous(), 2)
+    with pytest.raises(TypeError):
+        kernels.vpu_chain(x.double(), 2)
+    with pytest.raises(ValueError):
+        kernels.vpu_chain(x, 0)
+    odd = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    with pytest.raises(ValueError):  # contiguous, but not on a 4-byte boundary
+        kernels.vpu_chain(odd.view(x.shape), 2)
+    a, b = vpu_bench.matmul_inputs(cuda_device, 8)
+    with pytest.raises(ValueError):
+        kernels.vpu_matmul(a.cpu(), b.cpu(), 2)
+    with pytest.raises(ValueError):
+        kernels.vpu_matmul(a[:, :5].contiguous(), b, 2)
+    with pytest.raises(ValueError):
+        kernels.vpu_matmul(a[:500].contiguous(), b, 2)
+    with pytest.raises(ValueError):
+        kernels.vpu_matmul(a, b[:, :512].contiguous(), 2)
+    with pytest.raises(ValueError):
+        kernels.vpu_matmul(a, b.t().contiguous().t(), 2)
 
 
 @pytest.mark.cuda
