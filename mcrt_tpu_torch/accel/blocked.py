@@ -21,9 +21,13 @@ plain PyTorch version (``cull_plain``, ``closest_plain``,
 ``occluded_plain``, ``dense_closest_plain``, ``dense_any_plain``).
 ``_kernel_or_plain`` picks between them by the rays' device: the plain
 version only for CPU tensors, otherwise the kernel, whose wrapper launches
-on a CUDA tensor or raises.  ``cull_tests``, ``walk_tests`` and
-``dense_tests`` count the work each kernel does on given inputs (slab and
-Moller-Trumbore tests), from which a run computes the kernel's bound.
+on a CUDA tensor or raises.  ``cull_tests``, ``walk_tests``, ``walk_work``
+and ``dense_tests`` count the work on given inputs (slab and
+Moller-Trumbore tests), from which a run computes each kernel's bound.
+K1 and K4/K5 equal their plain versions bit for bit; K2/K3 fuse their
+arithmetic and skip, per warp, blocks no ray of the warp enters, so they
+are held to ``closest_plain`` / ``occluded_plain`` within a stated share
+of differing rays (``chip_smoke.py``).
 
 Intersection carries no gradient (the JAX package returns zero
 cotangents); callers run under ``torch.no_grad()``.
@@ -379,14 +383,16 @@ def flat_rows(tri: torch.Tensor):
 
 
 def _walk_plain(counts, rays_packed, lists, tn_sorted, rows_of, tile, group,
-                closest: bool, tally: list | None = None):
+                closest: bool, tally: list | None = None, observe=None):
     """Shared plain version of K2/K3 (and, with another ``rows_of``, of the
     two-level K6/K7): per tile, walk the visit list ``group`` entries per
     step, testing every ray of the tile, with the kernels' loop condition;
     all tiles advance in lock-step.  ``tally`` (a list) receives, per step,
-    the Moller-Trumbore tests the kernel runs (the rays that test: live for
-    K2, live and still unblocked for K3, times the group's slots) and the
-    slots it stages."""
+    the Moller-Trumbore tests the tile walk runs (the rays that test: live
+    for K2, live and still unblocked for K3, times the group's slots) and
+    the slots it stages.  ``observe(r, e, t, hit, best_t, blocked)`` sees
+    each step's tiles ``r``, list positions ``e``, test results (A,
+    G*128, tile) and the state before the step; it changes nothing."""
     dev = rays_packed.device
     npad = rays_packed.shape[1]
     n_tiles = npad // tile
@@ -428,6 +434,8 @@ def _walk_plain(counts, rays_packed, lists, tn_sorted, rows_of, tile, group,
             d = (dx[r], dy[r], dz[r])
             if closest:
                 t, hit = _mt(tri9, o, d, tmn[r], tmx[r], best_t[r])
+                if observe is not None:
+                    observe(r, e, t, hit, best_t[r], blocked[r])
                 tnew, j = torch.where(hit, t, BIG).min(dim=1, keepdim=True)
                 better = tnew < best_t[r]
                 j = j.squeeze(1)
@@ -439,7 +447,9 @@ def _walk_plain(counts, rays_packed, lists, tn_sorted, rows_of, tile, group,
                 best_t[r] = torch.where(better, tnew, best_t[r])
             else:
                 bt = torch.where(blocked[r], -BIG, BIG)
-                _, hit = _mt(tri9, o, d, tmn[r], tmx[r], bt)
+                t, hit = _mt(tri9, o, d, tmn[r], tmx[r], bt)
+                if observe is not None:
+                    observe(r, e, t, hit, best_t[r], blocked[r])
                 blocked[r] = blocked[r] | hit.any(dim=1, keepdim=True)
         k += 1
     if closest:
@@ -474,6 +484,84 @@ def walk_tests(counts, rays_packed, lists, tn_sorted, rows_of, tile: int = TILE,
     _walk_plain(counts, rays_packed, lists, tn_sorted, rows_of, tile, group, closest,
                 tally=tally)
     return (int(sum(int(a) for a, _ in tally)), int(sum(b for _, b in tally)))
+
+
+def _ray_boxes(rays_packed, aabb, ids, r, pos, tile):
+    """Slab test of tiles ``r``' rays (A, 1, tile) against the boxes of
+    their list entries ``ids`` (int64 block ids) at positions ``pos`` (P,):
+    entry distances and whether each ray enters, both (A, P, tile)."""
+    n_tiles = rays_packed.shape[1] // tile
+    ox, oy, oz, _, _, _, ix, iy, iz, tmn, tmx = _ray_rows(
+        rays_packed.reshape(8, n_tiles, 1, tile)[:, r])
+    box = aabb[ids[r][:, pos]]  # (A, P, 8)
+    tn, tf = _slab([box[..., c, None] for c in range(3)],
+                   [box[..., 3 + c, None] for c in range(3)],
+                   (ox, oy, oz), (ix, iy, iz), tmn, tmx)
+    return tn, tn <= tf
+
+
+def walk_work(counts, rays_packed, lists, tn_sorted, tri, aabb, tile: int = TILE,
+              group: int = GROUP, closest: bool = True) -> tuple[int, int]:
+    """Two counts of the work of K2 (``closest``) or K3 on these inputs,
+    beside ``walk_tests``' tile walk:
+
+    - ``least``: ray-block visits that any front-to-back walk of these
+      lists must make.  For each live ray, the blocks of its tile's list
+      (the first ``counts`` entries) whose box it enters at an entry
+      distance no greater than its final t (the plain version's hit
+      distance; tmax on a miss), and for K3 only up to its first blocking
+      block in list order.  Each costs a slab test and 128
+      Moller-Trumbore tests.
+    - ``warp``: the (warp of 32 rays, block) visits the kernel makes: the
+      plain walk with the kernel's warp mask, a block of a walked group
+      counting for a warp when one of its lanes enters the box (K2: no
+      farther than the best t so far; K3: live and not yet blocked).
+      Each costs 32 slab tests and 32 x 128 Moller-Trumbore tests.
+    """
+    npad = rays_packed.shape[1]
+    n_tiles = npad // tile
+    dev = rays_packed.device
+    nbpad = lists.shape[1]
+    ids = lists.to(torch.int64).clamp(max=tri.shape[1] // BLOCK - 1)  # as the kernels clamp
+    warp = 0
+    stop = torch.full((n_tiles, 1, tile), nbpad, dtype=torch.int64, device=dev)
+    live = (rays_packed[7] > rays_packed[6]).reshape(n_tiles, 1, tile)
+
+    def observe(r, e, t, hit, best0, blocked0):
+        nonlocal warp
+        a, g = r.numel(), e.numel()
+        tn, inside = _ray_boxes(rays_packed, aabb, ids, r, e, tile)  # (A, G, tile)
+        hb = hit.reshape(a, g, BLOCK, tile)
+        if closest:
+            tb = torch.where(hb, t.reshape(a, g, BLOCK, tile), BIG).amin(dim=2)
+            best = torch.cat([best0, tb[:, :-1]], dim=1).cummin(dim=1).values
+            enter = inside & (tn <= best)
+        else:
+            hit_any = hb.any(dim=2)  # (A, G, tile)
+            before = torch.cat([blocked0, hit_any[:, :-1]], dim=1).to(torch.int8)
+            enter = inside & live[r] & (before.cummax(dim=1).values == 0)
+            first = torch.where(hit_any.any(dim=1, keepdim=True),
+                                e[hit_any.to(torch.int8).argmax(dim=1, keepdim=True)], nbpad)
+            stop[r] = torch.where(blocked0, stop[r], first)
+        warp += int(enter.reshape(a, g, tile // 32, 32).any(dim=3).sum())
+
+    out = _walk_plain(counts, rays_packed, lists, tn_sorted, flat_rows(tri), tile, group,
+                      closest, observe=observe)
+    final_t = out[0].reshape(n_tiles, 1, tile) if closest else None
+    least = 0
+    counts64 = counts.to(torch.int64)
+    step = max(1, (1 << 24) // (n_tiles * tile))
+    for p0 in range(0, int(counts64.max()) if n_tiles else 0, step):
+        r = (counts64 > p0).nonzero().squeeze(1)
+        pos = torch.arange(p0, min(p0 + step, nbpad), device=dev)
+        tn, inside = _ray_boxes(rays_packed, aabb, ids, r, pos, tile)  # (A, P, tile)
+        ok = inside & (pos[None, :, None] < counts64[r][:, None, None])
+        if closest:
+            ok = ok & (tn <= final_t[r])
+        else:
+            ok = ok & (pos[None, :, None] <= stop[r])
+        least += int(ok.sum())
+    return least, warp
 
 
 def cull_tests(rays_packed: torch.Tensor, chunk_aabb: torch.Tensor,
@@ -621,16 +709,19 @@ def _query_closest(rays_packed, accel: BlockedAccel):
     if accel.num_blocks <= DENSE_BLOCKS:
         return _dense_query(rays_packed, accel.tri, True)
     counts, lists, tn_sorted = _visit_lists(rays_packed, accel)
-    closest = _kernel_or_plain(rays_packed, kernels.closest, closest_plain)
-    return closest(counts, rays_packed, lists, tn_sorted, accel.tri, TILE, GROUP)
+    if rays_packed.device.type == "cpu":  # as _kernel_or_plain; K2 also takes the boxes
+        return closest_plain(counts, rays_packed, lists, tn_sorted, accel.tri, TILE, GROUP)
+    return kernels.closest(counts, rays_packed, lists, tn_sorted, accel.tri, accel.aabb,
+                           TILE, GROUP)
 
 
 def _query_any(rays_packed, accel: BlockedAccel):
     if accel.num_blocks <= DENSE_BLOCKS:
         return _dense_query(rays_packed, accel.tri, False)
     counts, lists, _ = _visit_lists(rays_packed, accel)
-    occluded = _kernel_or_plain(rays_packed, kernels.occluded, occluded_plain)
-    return occluded(counts, rays_packed, lists, accel.tri, TILE, GROUP)
+    if rays_packed.device.type == "cpu":
+        return occluded_plain(counts, rays_packed, lists, accel.tri, TILE, GROUP)
+    return kernels.occluded(counts, rays_packed, lists, accel.tri, accel.aabb, TILE, GROUP)
 
 
 def _resolve_uv(tri: torch.Tensor, slot: torch.Tensor, rays: Rays):

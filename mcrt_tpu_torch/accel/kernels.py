@@ -40,12 +40,15 @@ _HEADERS = ("blocked.cuh",)
 _UNITS = ("blocked.cu", "dense.cu", "two_level.cu", "vpu.cu")
 _SOURCES = _HEADERS + _UNITS
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# Float contraction: -fmad=false and no --use_fast_math, so
-# every multiply and add rounds on its own as in the plain versions;
-# later performance work may revisit this.
+# Float contraction: -fmad=false and no --use_fast_math, so every multiply
+# and add of K1 and K4-K9 rounds on its own as in the plain versions (K8/K9
+# fuse with explicit __fmaf_rn where their reference does).  The visit-list
+# walks K2/K3 fuse their test with explicit __fmaf_rn and are held to their
+# plain versions within a stated tolerance instead (csrc/blocked.cu).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 DENSE_MAX_SLOTS = 1024  # K4/K5 stage the whole table: 8 blocks of 128 slots
+WALK_MAX_TILE = 256  # K2/K3's launch bound (MCRT_WALK_MAX_TILE in csrc/blocked.cu)
 
 
 def _nvcc() -> str:
@@ -124,8 +127,8 @@ class _KernelLibrary:
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mcrt_cull.argtypes = [p, p, p, p, i, i, i, p]
-        lib.mcrt_closest.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.mcrt_occluded.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.mcrt_closest.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.mcrt_occluded.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.mcrt_dense_closest.argtypes = [p, p, p, p, i, i, p]
         lib.mcrt_dense_any.argtypes = [p, p, p, i, i, p]
         lib.mcrt_closest2.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
@@ -228,35 +231,49 @@ def _check_walk(counts, rays_packed, lists, tri, tile, group):
     return dev, npad, nbpad
 
 
-def closest(counts, rays_packed, lists, tn_sorted, tri, tile: int, group: int):
+def _check_boxes(dev, tile, tri, aabb, nbpad):
+    """K2/K3's extra checks: the tile within their launch bound, the block
+    boxes (NBpad, 8), and both tables on 16-byte boundaries (the kernels
+    copy them to shared memory 16 bytes at a time)."""
+    if tile > WALK_MAX_TILE:
+        raise ValueError(f"tile {tile} exceeds the visit-list walks' {WALK_MAX_TILE}")
+    _require(aabb, "aabb", torch.float32, (nbpad, 8), dev)
+    if tri.data_ptr() % 16 or aabb.data_ptr() % 16:
+        raise ValueError("tri and aabb must start on 16-byte boundaries")
+
+
+def closest(counts, rays_packed, lists, tn_sorted, tri, aabb, tile: int, group: int):
     """K2: (Npad,) best t (BIG on a miss) and (Npad,) slot (-1 on a miss)
-    (replaces ``pallas_blocked.py:_closest_kernel``)."""
+    (replaces ``pallas_blocked.py:_closest_kernel``); ``aabb`` is the
+    (NBpad, 8) block box table the lists index."""
     dev, npad, nbpad = _check_walk(counts, rays_packed, lists, tri, tile, group)
     _require(tn_sorted, "tn_sorted", torch.float32, tuple(lists.shape), dev)
+    _check_boxes(dev, tile, tri, aabb, nbpad)
     t = torch.empty((npad,), dtype=torch.float32, device=dev)
     slot = torch.empty((npad,), dtype=torch.int32, device=dev)
     if npad == 0:
         return t, slot
     err = LIBRARY.get().mcrt_closest(
         counts.data_ptr(), rays_packed.data_ptr(), lists.data_ptr(),
-        tn_sorted.data_ptr(), tri.data_ptr(), t.data_ptr(), slot.data_ptr(),
-        npad, tile, nbpad, tri.shape[1], group, _stream(dev))
+        tn_sorted.data_ptr(), tri.data_ptr(), aabb.data_ptr(), t.data_ptr(),
+        slot.data_ptr(), npad, tile, nbpad, tri.shape[1], group, _stream(dev))
     closest.launches += 1
     _check_launch(err, "K2 closest")
     return t, slot
 
 
-def occluded(counts, rays_packed, lists, tri, tile: int, group: int):
+def occluded(counts, rays_packed, lists, tri, aabb, tile: int, group: int):
     """K3: (Npad,) 1.0 where the segment is blocked, else 0.0 (replaces
-    ``pallas_blocked.py:_occluded_kernel``)."""
+    ``pallas_blocked.py:_occluded_kernel``); ``aabb`` as for K2."""
     dev, npad, nbpad = _check_walk(counts, rays_packed, lists, tri, tile, group)
+    _check_boxes(dev, tile, tri, aabb, nbpad)
     out = torch.empty((npad,), dtype=torch.float32, device=dev)
     if npad == 0:
         return out
     err = LIBRARY.get().mcrt_occluded(
         counts.data_ptr(), rays_packed.data_ptr(), lists.data_ptr(),
-        tri.data_ptr(), out.data_ptr(), npad, tile, nbpad, tri.shape[1],
-        group, _stream(dev))
+        tri.data_ptr(), aabb.data_ptr(), out.data_ptr(), npad, tile, nbpad,
+        tri.shape[1], group, _stream(dev))
     occluded.launches += 1
     _check_launch(err, "K3 occluded")
     return out

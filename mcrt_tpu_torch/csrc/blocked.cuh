@@ -1,13 +1,15 @@
 // Shared device functions of the intersector kernels K1-K7: NaN-propagating
-// min/max, the ray-slab test, the Moller-Trumbore test and the block-wide
-// max of the walks' early exit.
+// min/max, the ray-slab test, the Moller-Trumbore test of K4-K7 and the
+// block-wide max of the two-level walks' early exit.
 //
 // Every formula follows mcrt_tpu_torch/accel/blocked.py (_ray_rows, _slab,
 // _mt) operation for operation.  The library is compiled with -fmad=false
 // and without --use_fast_math (float contraction), so each
 // multiply and add rounds on its own exactly as the plain PyTorch versions
-// do, and `1.0f / x` is an IEEE division.  Later performance work may
-// revisit this.
+// do, and `1.0f / x` is an IEEE division: K1 and K4-K7 equal their plain
+// versions bit for bit.  The visit-list walks K2/K3 (blocked.cu) fuse on
+// purpose, with explicit __fmaf_rn, and defer the division in their own
+// test; they are held to their plain versions within a stated tolerance.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -98,8 +100,9 @@ __device__ __forceinline__ float block_max(float v, float* s_red) {
     return r;
 }
 
-// Dynamic shared memory of a walk (K2/K3, K6/K7): 9 rows of group*128
-// triangle floats plus `ids` ints per group entry.
+// Dynamic shared memory of one staged group of a walk: 9 rows of group*128
+// triangle floats plus `ids` ints per group entry (K6/K7 stage one group,
+// K2/K3 two, with the blocks' boxes).
 inline size_t walk_smem(int group, int ids) {
     return (size_t)9 * group * MCRT_BLOCK * sizeof(float) + (size_t)ids * group * sizeof(int);
 }

@@ -259,8 +259,72 @@ def test_wrappers_take_plain_versions_on_cpu_only(case):
         p, c, ls, t, tri = (x.to(dev) for x in (packed, counts, lists, tn, tacc.tri))
         with pytest.raises(ValueError, match="CUDA"):
             kernels.cull(p, tacc.chunk_aabb.to(dev), tacc.aabb.to(dev), tb.TILE)
+        box = tacc.aabb.to(dev)
         with pytest.raises(ValueError, match="CUDA"):
-            kernels.closest(c, p, ls, t, tri, tb.TILE, tb.GROUP)
+            kernels.closest(c, p, ls, t, tri, box, tb.TILE, tb.GROUP)
         with pytest.raises(ValueError, match="CUDA"):
-            kernels.occluded(c, p, ls, tri, tb.TILE, tb.GROUP)
+            kernels.occluded(c, p, ls, tri, box, tb.TILE, tb.GROUP)
     assert not any(kernels.launch_counts().values())
+
+
+def _brute_least_visits(tacc, packed, counts, lists, t_final, tile, closest):
+    """``walk_work``'s least count, ray by ray and block by block: the
+    entered blocks of the ray's list with an entry distance no greater
+    than its final t (K2), or up to its first blocking block (K3)."""
+    total = 0
+    for col in range(packed.shape[1]):
+        ox, oy, oz, dx, dy, dz, ix, iy, iz, tmn, tmx = tb._ray_rows(packed[:, col, None])
+        if not bool(tmx > tmn):
+            continue
+        row = col // tile
+        for p in range(int(counts[row])):
+            b = int(lists[row, p])
+            box = tacc.aabb[b]
+            tn, tf = tb._slab(box[0:3], box[3:6], (ox, oy, oz), (ix, iy, iz), tmn, tmx)
+            entered = bool(tn <= tf)
+            if closest:
+                total += entered and bool(tn <= t_final[col])
+                continue
+            total += entered
+            tri9 = [tacc.tri[c, b * tb.BLOCK:(b + 1) * tb.BLOCK] for c in range(9)]
+            _, hit = tb._mt(tri9, (ox, oy, oz), (dx, dy, dz), tmn, tmx, tb.BIG)
+            if bool(hit.any()):
+                break
+    return total
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_least_walk_work_equals_a_brute_loop(gallery, closest):
+    """K2/K3's per-ray floor (``walk_work``'s least visits) on 100 rays
+    equals the count of a loop over rays and list entries."""
+    _, jscene, _, _, tacc = gallery
+    _, tr = both_rays(random_ray_arrays(jscene, 100, seed=31))
+    packed, _ = tb._sorted_table(tr, tacc, True)
+    counts, lists, tn = tb.lists_from_keys(tb.cull_plain(packed, tacc.chunk_aabb, tacc.aabb))
+    t_final, _ = tb.closest_plain(counts, packed, lists, tn, tacc.tri)
+    least, warp = tb.walk_work(counts, packed, lists, tn, tacc.tri, tacc.aabb,
+                               closest=closest)
+    assert least == _brute_least_visits(tacc, packed, counts, lists, t_final, tb.TILE,
+                                        closest)
+    assert 0 < least and 0 < warp <= int(counts.sum()) * tb.TILE // 32
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_walk_work_is_at_most_the_tile_walk(case, closest):
+    """The per-ray floor and the per-warp visits never exceed the tests of
+    the tile walk (``walk_tests``).  K2's floor does not depend on the tile
+    width; K3's does, since its first blocking block follows list order."""
+    _, jscene, _, _, tacc = case
+    _, tr = both_rays(random_ray_arrays(jscene, 1000, seed=32))
+    packed, _ = tb._sorted_table(tr, tacc, True)
+    found = []
+    for tile, group in ((tb.TILE, tb.GROUP), (64, 3)):
+        counts, lists, tn = tb.lists_from_keys(
+            tb.cull_plain(packed, tacc.chunk_aabb, tacc.aabb, tile))
+        tests, _ = tb.walk_tests(counts, packed, lists, tn if closest else None,
+                                 tb.flat_rows(tacc.tri), tile, group, closest)
+        least, warp = tb.walk_work(counts, packed, lists, tn, tacc.tri, tacc.aabb, tile,
+                                   group, closest)
+        assert 0 < least * tb.BLOCK <= warp * 32 * tb.BLOCK <= tests
+        found.append(least)
+    assert found[0] == found[1] or not closest

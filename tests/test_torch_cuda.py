@@ -8,9 +8,13 @@ no JAX installed (the repository's ``conftest.py`` imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tests marked ``cuda`` skip themselves where ``torch.cuda.is_available()`` is
-false.  Tolerances: cull keys and any-hit flags are equal (the kernels use
-the plain versions' formulas without fused multiply-add); closest-hit
-flags and slots are equal and distances agree to rtol 1e-5; the K8 chains
+false.  Tolerances: cull keys and the dense and two-level any-hit flags
+are equal (those kernels use the plain versions' formulas without fused
+multiply-add); their closest-hit flags and slots are equal and distances
+agree to rtol 1e-5.  The visit-list walks K2/K3 fuse their test and skip,
+per warp, blocks none of its rays enters, so a ray may differ (a flag, a
+slot, or t beyond rtol 1e-5 on the same slot) on at most 1e-4 of the live
+rays, and never fewer than 2 rays are allowed; the K8 chains
 are bit-equal to ``chain_plain`` (the same single roundings) and the K9
 products lie within the dot-product bound ``2 * k * 2**-24 * (|a| @ |b|)``
 of ``matmul_plain``.
@@ -71,9 +75,23 @@ def _rays(n, seed, device):
                 active=t(rng.random(n) > 0.1))
 
 
+def _walk_allowed(packed) -> int:
+    """Rays on which K2/K3 may differ from their plain versions."""
+    return max(2, int(1e-4 * int((packed[7] > packed[6]).sum())))
+
+
+def _closest_differing(kern, plain) -> int:
+    (t_k, s_k), (t_p, s_p) = kern, plain
+    same = (s_k >= 0) & (s_k == s_p)
+    return int(((s_k != s_p) | (same & ~torch.isclose(t_k, t_p, rtol=1e-5, atol=0.0))).sum())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile, group", [(128, 4), (256, 1), (64, 3)])
+@pytest.mark.parametrize("tile, group", [(128, 4), (256, 1), (64, 3), (128, 8)])
 def test_kernels_match_plain_versions(gallery_cuda, tile, group):
+    """K1 equal to its plain version, K2/K3 within the stated tolerance;
+    group 8 stages two 37 KB buffers, past the 48 KB that needs no
+    opt-in."""
     scene, acc = gallery_cuda
     rays = _rays(5000, seed=tile + group, device=acc.tri.device)
     packed, _ = tb._sorted_table(rays, acc, True)  # 5120 columns
@@ -81,17 +99,43 @@ def test_kernels_match_plain_versions(gallery_cuda, tile, group):
     keys = kernels.cull(packed, acc.chunk_aabb, acc.aabb, tile)
     assert torch.equal(keys, tb.cull_plain(packed, acc.chunk_aabb, acc.aabb, tile))
     counts, lists, tn = tb.lists_from_keys(keys)
-    t_k, s_k = kernels.closest(counts, packed, lists, tn, acc.tri, tile, group)
-    t_p, s_p = tb.closest_plain(counts, packed, lists, tn, acc.tri, tile, group)
-    assert torch.equal(s_k >= 0, s_p >= 0) and torch.equal(s_k, s_p)
+    allowed = _walk_allowed(packed)
+    t_k, s_k = kernels.closest(counts, packed, lists, tn, acc.tri, acc.aabb, tile, group)
+    plain = tb.closest_plain(counts, packed, lists, tn, acc.tri, tile, group)
+    assert _closest_differing((t_k, s_k), plain) <= allowed
     hit = s_k >= 0
-    torch.testing.assert_close(t_k[hit], t_p[hit], rtol=1e-5, atol=0.0)
-    b_k = kernels.occluded(counts, packed, lists, acc.tri, tile, group)
-    assert torch.equal(b_k, tb.occluded_plain(counts, packed, lists, acc.tri, tile, group))
+    b_k = kernels.occluded(counts, packed, lists, acc.tri, acc.aabb, tile, group)
+    b_p = tb.occluded_plain(counts, packed, lists, acc.tri, tile, group)
+    assert int((b_k != b_p).sum()) <= allowed
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert {k: after[k] - before[k] for k in ("K1", "K2", "K3")} == {"K1": 1, "K2": 1, "K3": 1}
     assert int(hit.sum()) > 100 and int(b_k.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_a_warp_entering_no_listed_box_misses(gallery_cuda):
+    """One tile whose last warp of rays leaves the scene from beyond its
+    upper corner: the tile's list comes from the other rays, that warp
+    skips every listed block and returns misses and unblocked flags."""
+    _, acc = gallery_cuda
+    rays = _rays(tb.TILE, seed=9, device=acc.tri.device)
+    away = torch.arange(tb.TILE, device=acc.tri.device) >= tb.TILE - 32
+    o = torch.where(away[:, None], acc.bounds[1] + 1.0, rays.o)
+    d = torch.where(away[:, None], rays.d.abs(), rays.d)
+    rays = Rays.make(o.contiguous(), d.contiguous(), tmax=rays.tmax, active=rays.active | away)
+    packed = tb._pack_table(tb._ray_table(rays))  # unsorted: the warp stays one warp
+    counts, lists, tn = tb.lists_from_keys(kernels.cull(packed, acc.chunk_aabb, acc.aabb,
+                                                        tb.TILE))
+    assert int(counts[0]) > 0
+    for group in (tb.GROUP, 8):
+        t, slot = kernels.closest(counts, packed, lists, tn, acc.tri, acc.aabb, tb.TILE, group)
+        blocked = kernels.occluded(counts, packed, lists, acc.tri, acc.aabb, tb.TILE, group)
+        assert (slot[away] == -1).all() and (t[away] == tb.BIG).all()
+        assert (blocked[away] == 0.0).all()
+        assert int((slot[~away] >= 0).sum()) > 10
+        assert _closest_differing((t, slot), tb.closest_plain(
+            counts, packed, lists, tn, acc.tri, tb.TILE, group)) <= _walk_allowed(packed)
 
 
 @pytest.mark.cuda
@@ -122,6 +166,14 @@ def test_wrappers_refuse_bad_inputs(gallery_cuda):
         kernels.cull(packed.t().contiguous().t(), acc.chunk_aabb, acc.aabb, 128)
     with pytest.raises(ValueError):
         kernels.cull(packed, acc.chunk_aabb.cpu(), acc.aabb, 128)
+    counts, lists, tn = tb.lists_from_keys(kernels.cull(packed, acc.chunk_aabb, acc.aabb, 128))
+    with pytest.raises(ValueError, match="aabb"):
+        kernels.closest(counts, packed, lists, tn, acc.tri, acc.aabb[:-1], 128, 4)
+    shifted = torch.empty(acc.aabb.numel() + 1, device=acc.aabb.device)[1:].view(acc.aabb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.occluded(counts, packed, lists, acc.tri, shifted, 128, 4)
+    with pytest.raises(ValueError, match="group"):
+        kernels.occluded(counts, packed, lists, acc.tri, acc.aabb, 128, 9)
 
 
 @pytest.mark.cuda

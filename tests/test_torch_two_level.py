@@ -303,3 +303,25 @@ def test_plain_pair_walk_does_not_depend_on_tile_and_group(case):
     for a, b in zip(run(256, 1), ref):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert int((ref[1] >= 0).sum()) > 50 and (ref[2][ref[1] >= 0] >= 0).all()
+
+
+# walk_tests of K6 (closest) and K7 on 1,000 rays of each case, as the tile
+# walk counted them before K2/K3 gained their own counts (walk_work).
+PAIR_WALK_TESTS = {
+    "instanced_boxes": ((923648, 7680), (754688, 7680)),
+    "grid100": ((3741696, 29696), (3125760, 29696)),
+    "grid100_big": ((18892800, 148992), (15482368, 148992)),
+}
+
+
+def test_pair_walk_counts_are_unchanged(case):
+    """K6/K7's bound keeps the tile walk's count (``walk_tests`` through
+    ``pair_rows``), which shares ``_walk_plain`` with K2/K3."""
+    name, jscene, _, _, tacc = case
+    _, tr = _rays(jscene, 1000, seed=6)
+    packed, _ = tb._sorted_table(tr, tacc, True)
+    counts, lists, tn = ttl.pair_lists(packed, tacc)
+    rows = ttl.pair_rows(tacc.blas.tri, tacc.pair_code, tacc.tw_rows)
+    got = (tb.walk_tests(counts, packed, lists, tn, rows, tb.TILE, tb.GROUP, True),
+           tb.walk_tests(counts, packed, lists, None, rows, tb.TILE, tb.GROUP, False))
+    assert got == PAIR_WALK_TESTS[name]
