@@ -29,21 +29,24 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    K1 cull, K2 closest hit and K3 any hit on ``sphere_field`` (~245k
    triangles); K4 and K5 (dense) on ``textured_hall``; K6 and K7
    (two-level) behind K1 over pair boxes on ``sphere_field_instanced``.
-   K1 keys must be equal; K4/K6 closest-hit flags, slots (and K6
-   instances) equal and t within rtol 1e-5 where both hit; K5/K7 any-hit
-   flags equal: those kernels compute the plain versions' formulas
-   without fused multiply-add, in the same order.  K2/K3 are held to a
-   stated tolerance instead: their test fuses its multiply-adds and
-   defers the division, which moves t by a few ulps and can flip a
-   grazing edge or a tie between the two triangles of a shared edge, and
-   a warp skips blocks none of its rays enters, which differs from the
-   plain walk only at a box's rounding edge.  A ray differs if its hit
-   flag or slot (K2), or its blocked flag (K3), differs from the plain
-   version's, or if both hit the same slot and t does not agree to rtol
-   1e-5; at most ``WALK_SHARE`` = 1e-4 of the live rays may differ, and
-   never fewer than ``WALK_MIN_RAYS`` = 2 are allowed.  Every differing
-   share, the largest |dt|/t, and K2/K3's warp-block visits beside their
-   per-ray floor are printed.
+   K1 keys must be equal; K4 closest-hit flags and slots equal and t
+   within rtol 1e-5 where both hit; K5 any-hit flags equal: those kernels
+   compute the plain versions' formulas without fused multiply-add, in
+   the same order.  The list walks K2/K3 and K6/K7 are held to a stated
+   tolerance instead: their prefilter fuses its multiply-adds and defers
+   the division, which can drop a grazing edge or a tie between the two
+   triangles of a shared edge beyond its slack, and a warp skips list
+   entries (blocks, or (instance, block) pairs) none of its rays enters,
+   which differs from the plain walk only at a box's rounding edge; a hit
+   they take is decided, and its t computed, by the plain arithmetic (on
+   K6/K7's world rows, which are bit-equal to the plain version's).  A
+   ray differs if its hit flag, slot or instance (K2, K6), or its blocked
+   flag (K3, K7), differs from the plain version's, or if both hit the
+   same slot (and instance) and t does not agree to rtol 1e-5; at most
+   ``WALK_SHARE`` = 1e-4 of the live rays may differ, and never fewer
+   than ``WALK_MIN_RAYS`` = 2 are allowed.  Every differing share, the
+   largest |dt|/t, and the walks' warp visits beside their per-ray floor
+   are printed.
 3. Render parity: ``glass_gallery``, ``textured_hall`` and
    ``instanced_boxes`` at 64x64, 1 spp, Sobol, max_depth 3, once on the
    card (kernels) and once on the CPU (plain versions) with the same port
@@ -58,7 +61,7 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    have run.  The instanced image's mean must agree with the baked
    ``sphere_field`` image's within 1%: both take the same Sobol sample
    streams over the same content, so only paths that float rounding of
-   the instance transforms (K6/K7) or K2/K3's fused test flips can
+   the instance transforms or the walks' fused prefilter flips can
    differ.  Each prints ms per spp,
    rays/s (closest plus shadow rays actually traced) and peak memory.
 
@@ -71,13 +74,14 @@ each output written once) over 3.35 TB/s.  Operations: 25 a slab test,
 54 a Moller-Trumbore test, 48 a slot staged into world space (K6/K7); the
 tests are counted from the plain versions' loops (``cull_tests``,
 ``walk_tests``, ``dense_tests``); K8 counts 5 a round of its chain and K9
-2 a multiply-add, as ``tools/vpu_bench.py`` counts them.  K2/K3 have two
-counts, both printed, and the row takes the smaller bound: the tile walk
-(``walk_tests``: every live ray of a tile against every slot of the
-groups walked) and the per-ray floor (``walk_work``: the blocks of the
-tile's list each live ray enters no farther than its final t, or up to
-its first blocking block for K3, each a slab test and 128
-Moller-Trumbore tests).  No single
+2 a multiply-add, as ``tools/vpu_bench.py`` counts them.  The list walks
+K2/K3 and K6/K7 have two counts, both printed, and the row takes the
+smaller bound: the tile walk (``walk_tests``: every live ray of a tile
+against every slot of the groups walked) and the per-ray floor
+(``walk_work``: the entries of the tile's list each live ray enters no
+farther than its final t, or up to its first blocking entry for K3/K7,
+each a slab test and 128 Moller-Trumbore tests); K6/K7 add the slots
+they stage into world space to both.  No single
 PyTorch call computes a ray-triangle traversal or K8's chain, so
 ``library_ms`` is null for every kernel but K9 (``torch.matmul``).
 
@@ -105,7 +109,7 @@ INSTANCED_MEAN_RTOL = 0.01
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BF16 = 133.8e12  # H100 SXM5 bfloat16 outside the tensor cores (Hopper white paper)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-WALK_SHARE, WALK_MIN_RAYS = 1e-4, 2  # K2/K3: differing rays allowed (share of live, least)
+WALK_SHARE, WALK_MIN_RAYS = 1e-4, 2  # K2/K3, K6/K7: differing rays allowed (share of live, least)
 OPS_SLAB, OPS_MT, OPS_STAGE = 25, 54, 48
 ITERS_RATIO = (1.7, 2.3)  # time(ITERS) / time(ITERS // 2) of K8/K9
 KERNELS = {  # id: (name, source, the TPU kernel it replaces)
@@ -191,8 +195,8 @@ class KernelResults:
 
     def record(self, k, wf, ms, plain_ms, err, ops, moved, peak=PEAK_FLOPS, library_ms=None,
                floor_ops=None):
-        """``floor_ops``: a second count of the work (K2/K3's per-ray
-        floor); both bounds are printed and the smaller is kept."""
+        """``floor_ops``: a second count of the work (the list walks'
+        per-ray floor); both bounds are printed and the smaller is kept."""
         r = self.rows[k]
         b_ms, by = bound(ops, moved, peak)
         if floor_ops is not None:
@@ -212,17 +216,15 @@ class KernelResults:
 
 
 def check_closest(k, wf, kern, plain):
-    """Closest-hit outputs (t, slot[, inst]) of a kernel and its plain
-    version: flags, slots and instances equal, t within rtol 1e-5."""
+    """Closest-hit outputs (t, slot) of a kernel and its plain version:
+    flags and slots equal, t within rtol 1e-5."""
     import torch
 
-    (t_k, s_k, *i_k), (t_p, s_p, *i_p) = kern, plain
+    (t_k, s_k), (t_p, s_p) = kern, plain
     hk, hp = s_k >= 0, s_p >= 0
     both = hk & hp
     t_ok = torch.isclose(t_k, t_p, rtol=1e-5, atol=0.0) | ~both
     bad = (hk != hp) | ~t_ok | (s_k != s_p)
-    for a, b in zip(i_k, i_p):
-        bad = bad | (a != b)
     share = bad.float().mean().item()
     err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
     log(f"[kernels:{wf}] {k}: {int(hk.sum())} hits, differing share {share:.2e}, "
@@ -233,54 +235,59 @@ def check_closest(k, wf, kern, plain):
 
 
 def walk_allowed(live) -> int:
-    """Rays of a wavefront on which K2/K3 may differ from their plain
-    versions."""
+    """Rays of a wavefront on which a list walk (K2/K3, K6/K7) may differ
+    from its plain version."""
     return max(WALK_MIN_RAYS, int(WALK_SHARE * int(live.sum())))
 
 
-def check_walk_closest(wf, kern, plain, live):
-    """K2 against ``closest_plain`` within the stated tolerance; returns
-    the largest |dt| where both hit."""
+def check_walk_closest(k, wf, kern, plain, live):
+    """A closest-hit walk, K2 (t, slot) or K6 (t, slot, instance), against
+    its plain version within the stated tolerance; returns the largest |dt|
+    where both hit."""
     import torch
 
-    (t_k, s_k), (t_p, s_p) = kern, plain
+    (t_k, s_k, *i_k), (t_p, s_p, *i_p) = kern, plain
     hk, hp = s_k >= 0, s_p >= 0
     both = hk & hp
-    same = both & (s_k == s_p)
+    inst_off = both & (i_k[0] != i_p[0]) if i_k else torch.zeros_like(both)
+    same = both & (s_k == s_p) & ~inst_off
     t_off = same & ~torch.isclose(t_k, t_p, rtol=1e-5, atol=0.0)
-    bad = (hk != hp) | (s_k != s_p) | t_off
+    bad = (hk != hp) | (s_k != s_p) | inst_off | t_off
     n_bad, allowed, n_live = int(bad.sum()), walk_allowed(live), int(live.sum())
     err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
     rel = ((t_k[same] - t_p[same]).abs() / t_p[same]).max().item() if same.any() else 0.0
-    log(f"[kernels:{wf}] K2: {int(hk.sum())} hits (plain {int(hp.sum())}); differing rays "
+    log(f"[kernels:{wf}] {k}: {int(hk.sum())} hits (plain {int(hp.sum())}); differing rays "
         f"{n_bad} of {n_live} live, share {n_bad / max(n_live, 1):.2e} (flag "
-        f"{int((hk != hp).sum())}, slot {int((both & (s_k != s_p)).sum())}, t {int(t_off.sum())}; "
-        f"allowed {allowed}); max |dt|/t {rel:.3e} on the same slot, max |dt| {err:.3e}")
+        f"{int((hk != hp).sum())}, slot {int((both & (s_k != s_p)).sum())}, instance "
+        f"{int(inst_off.sum())}, t {int(t_off.sum())}; allowed {allowed}); max |dt|/t "
+        f"{rel:.3e} on the same slot, max |dt| {err:.3e}")
     if n_bad > allowed:
-        raise AssertionError(f"K2 differs from the plain version ({wf}) on {n_bad} rays, "
+        raise AssertionError(f"{k} differs from the plain version ({wf}) on {n_bad} rays, "
                              f"more than the {allowed} allowed")
     return err
 
 
-def check_walk_any(wf, b_k, b_p, live):
-    """K3 against ``occluded_plain`` within the stated tolerance."""
+def check_walk_any(k, wf, b_k, b_p, live):
+    """An any-hit walk (K3, K7) against its plain version within the stated
+    tolerance."""
     bad = b_k != b_p
     n_bad, allowed, n_live = int(bad.sum()), walk_allowed(live), int(live.sum())
-    log(f"[kernels:{wf}] K3: {int(b_k.sum())} blocked (plain {int(b_p.sum())}); differing "
+    log(f"[kernels:{wf}] {k}: {int(b_k.sum())} blocked (plain {int(b_p.sum())}); differing "
         f"rays {n_bad} of {n_live} live, share {n_bad / max(n_live, 1):.2e} (blocked only by "
         f"the kernel {int((bad & (b_k > 0)).sum())}, only by the plain version "
         f"{int((bad & (b_p > 0)).sum())}; allowed {allowed})")
     if n_bad > allowed:
-        raise AssertionError(f"K3 differs from the plain version ({wf}) on {n_bad} rays, "
+        raise AssertionError(f"{k} differs from the plain version ({wf}) on {n_bad} rays, "
                              f"more than the {allowed} allowed")
     return (b_k - b_p).abs().max().item()
 
 
-def log_walk_work(k, wf, tests, least, warp):
-    """The tile walk's tests, the kernel's warp-block visits and the
-    per-ray floor, in Moller-Trumbore tests."""
-    log(f"[kernels:{wf}] {k} work: tile walk {tests:.4e} tests; kernel {warp} warp-block "
-        f"visits ({warp * 32 * 128:.4e} tests); per-ray floor {least} ray-block visits "
+def log_walk_work(k, wf, tests, least, warp, entry):
+    """The tile walk's tests, the kernel's warp visits and the per-ray
+    floor, in Moller-Trumbore tests; ``entry`` names a list entry ("block"
+    or "pair")."""
+    log(f"[kernels:{wf}] {k} work: tile walk {tests:.4e} tests; kernel {warp} warp-{entry} "
+        f"visits ({warp * 32 * 128:.4e} tests); per-ray floor {least} ray-{entry} visits "
         f"({least * 128:.4e} tests); warp visits / floor {warp * 32 / max(least, 1):.3f}")
 
 
@@ -413,7 +420,7 @@ def visit_list_kernels(res, device):
         f"{time.perf_counter() - t0:.2f} s")
     tile, group = blocked.TILE, blocked.GROUP
     tri, boxes = accel.tri, accel.aabb
-    rows = blocked.flat_rows(tri)
+    rows, entry_boxes = blocked.flat_rows(tri), blocked.block_boxes(tri, boxes)
     visit = OPS_SLAB + blocked.BLOCK * OPS_MT  # a block a ray enters, in the per-ray floor
     waves = wavefronts(camera, lambda r: intersect_blocked(scene.geometry, accel, r), device)
     for wf, rays in waves.items():
@@ -424,21 +431,22 @@ def visit_list_kernels(res, device):
                                                      tile, group), KERNEL_REPS)
         pms, _, out_p = timed(lambda: blocked.closest_plain(counts, packed, lists, tn, tri,
                                                             tile, group), PLAIN_REPS)
-        err = check_walk_closest(wf, out_k, out_p, live)
+        err = check_walk_closest("K2", wf, out_k, out_p, live)
         tests, _ = blocked.walk_tests(counts, packed, lists, tn, rows, tile, group, True)
-        least, warp = blocked.walk_work(counts, packed, lists, tn, tri, boxes, tile, group, True)
-        log_walk_work("K2", wf, tests, least, warp)
+        least, warp = blocked.walk_work(counts, packed, lists, tn, rows, entry_boxes, tile,
+                                        group, True)
+        log_walk_work("K2", wf, tests, least, warp, "block")
         res.record("K2", wf, ms, pms, err, tests * OPS_MT,
                    nbytes(counts, packed, lists, tn, tri, boxes, *out_k), floor_ops=least * visit)
         ms, _, b_k = timed(lambda: kernels.occluded(counts, packed, lists, tri, boxes, tile,
                                                     group), KERNEL_REPS)
         pms, _, b_p = timed(lambda: blocked.occluded_plain(counts, packed, lists, tri,
                                                            tile, group), PLAIN_REPS)
-        err = check_walk_any(wf, b_k, b_p, live)
+        err = check_walk_any("K3", wf, b_k, b_p, live)
         tests, _ = blocked.walk_tests(counts, packed, lists, None, rows, tile, group, False)
-        least, warp = blocked.walk_work(counts, packed, lists, tn, tri, boxes, tile, group,
-                                        False)
-        log_walk_work("K3", wf, tests, least, warp)
+        least, warp = blocked.walk_work(counts, packed, lists, tn, rows, entry_boxes, tile,
+                                        group, False)
+        log_walk_work("K3", wf, tests, least, warp, "block")
         res.record("K3", wf, ms, pms, err, tests * OPS_MT,
                    nbytes(counts, packed, lists, tri, boxes, b_k), floor_ops=least * visit)
     return scene, camera
@@ -487,29 +495,39 @@ def two_level_kernels(res, device):
         f"{time.perf_counter() - t0:.2f} s")
     tile, group = blocked.TILE, blocked.GROUP
     args = (accel.blas.tri, accel.pair_code, accel.tw_rows)
+    boxes = accel.pair_aabb
     rows = tl.pair_rows(*args)
+    visit = OPS_SLAB + blocked.BLOCK * OPS_MT  # a pair a ray enters, in the per-ray floor
     waves = wavefronts(camera, lambda r: tl.intersect_two_level(scene.geometry, accel, r),
                        device)
     for wf, rays in waves.items():
         packed, _ = blocked._sorted_table(rays, accel, True)
-        counts, lists, tn = cull_and_check(res, wf, packed, accel.pair_chunk, accel.pair_aabb,
-                                           k_id=None)
-        ms, _, out_k = timed(lambda: kernels.closest2(counts, packed, lists, tn, *args, tile,
-                                                      group), KERNEL_REPS)
+        live = packed[7] > packed[6]
+        counts, lists, tn = cull_and_check(res, wf, packed, accel.pair_chunk, boxes, k_id=None)
+        ms, _, out_k = timed(lambda: kernels.closest2(counts, packed, lists, tn, *args, boxes,
+                                                      tile, group), KERNEL_REPS)
         pms, _, out_p = timed(lambda: tl.closest2_plain(counts, packed, lists, tn, *args, tile,
                                                         group), PLAIN_REPS)
-        err = check_closest("K6", wf, out_k, out_p)
+        err = check_walk_closest("K6", wf, out_k, out_p, live)
         tests, staged = blocked.walk_tests(counts, packed, lists, tn, rows, tile, group, True)
+        least, warp = blocked.walk_work(counts, packed, lists, tn, rows, boxes, tile, group,
+                                        True)
+        log_walk_work("K6", wf, tests, least, warp, "pair")
         res.record("K6", wf, ms, pms, err, tests * OPS_MT + staged * OPS_STAGE,
-                   nbytes(counts, packed, lists, tn, *args, *out_k))
-        ms, _, b_k = timed(lambda: kernels.occluded2(counts, packed, lists, *args, tile, group),
-                           KERNEL_REPS)
+                   nbytes(counts, packed, lists, tn, *args, boxes, *out_k),
+                   floor_ops=least * visit + staged * OPS_STAGE)
+        ms, _, b_k = timed(lambda: kernels.occluded2(counts, packed, lists, *args, boxes, tile,
+                                                     group), KERNEL_REPS)
         pms, _, b_p = timed(lambda: tl.occluded2_plain(counts, packed, lists, *args, tile,
                                                        group), PLAIN_REPS)
-        err = check_any("K7", wf, b_k, b_p)
+        err = check_walk_any("K7", wf, b_k, b_p, live)
         tests, staged = blocked.walk_tests(counts, packed, lists, None, rows, tile, group, False)
+        least, warp = blocked.walk_work(counts, packed, lists, tn, rows, boxes, tile, group,
+                                        False)
+        log_walk_work("K7", wf, tests, least, warp, "pair")
         res.record("K7", wf, ms, pms, err, tests * OPS_MT + staged * OPS_STAGE,
-                   nbytes(counts, packed, lists, *args, b_k))
+                   nbytes(counts, packed, lists, *args, boxes, b_k),
+                   floor_ops=least * visit + staged * OPS_STAGE)
 
 
 def parity_phase(name: str):

@@ -27,7 +27,7 @@ Moller-Trumbore tests), from which a run computes each kernel's bound.
 K1 and K4/K5 equal their plain versions bit for bit; K2/K3 fuse their
 arithmetic and skip, per warp, blocks no ray of the warp enters, so they
 are held to ``closest_plain`` / ``occluded_plain`` within a stated share
-of differing rays (``chip_smoke.py``).
+of differing rays (``chip_smoke.py``), as are the two-level K6/K7.
 
 Intersection carries no gradient (the JAX package returns zero
 cotangents); callers run under ``torch.no_grad()``.
@@ -486,43 +486,56 @@ def walk_tests(counts, rays_packed, lists, tn_sorted, rows_of, tile: int = TILE,
     return (int(sum(int(a) for a, _ in tally)), int(sum(b for _, b in tally)))
 
 
-def _ray_boxes(rays_packed, aabb, ids, r, pos, tile):
+def _ray_boxes(rays_packed, boxes, ids, r, pos, tile):
     """Slab test of tiles ``r``' rays (A, 1, tile) against the boxes of
-    their list entries ``ids`` (int64 block ids) at positions ``pos`` (P,):
-    entry distances and whether each ray enters, both (A, P, tile)."""
+    their list entries ``ids`` (int64 rows of ``boxes``) at positions
+    ``pos`` (P,): entry distances and whether each ray enters, both (A, P,
+    tile)."""
     n_tiles = rays_packed.shape[1] // tile
     ox, oy, oz, _, _, _, ix, iy, iz, tmn, tmx = _ray_rows(
         rays_packed.reshape(8, n_tiles, 1, tile)[:, r])
-    box = aabb[ids[r][:, pos]]  # (A, P, 8)
+    box = boxes[ids[r][:, pos]]  # (A, P, 8)
     tn, tf = _slab([box[..., c, None] for c in range(3)],
                    [box[..., 3 + c, None] for c in range(3)],
                    (ox, oy, oz), (ix, iy, iz), tmn, tmx)
     return tn, tn <= tf
 
 
-def walk_work(counts, rays_packed, lists, tn_sorted, tri, aabb, tile: int = TILE,
-              group: int = GROUP, closest: bool = True) -> tuple[int, int]:
-    """Two counts of the work of K2 (``closest``) or K3 on these inputs,
-    beside ``walk_tests``' tile walk:
+def block_boxes(tri: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """The block boxes as K2/K3 index them: a list entry is clamped into the
+    triangle table's blocks, so ``aabb``'s padding rows past them are never
+    read."""
+    return aabb[:tri.shape[1] // BLOCK]
 
-    - ``least``: ray-block visits that any front-to-back walk of these
-      lists must make.  For each live ray, the blocks of its tile's list
-      (the first ``counts`` entries) whose box it enters at an entry
-      distance no greater than its final t (the plain version's hit
-      distance; tmax on a miss), and for K3 only up to its first blocking
-      block in list order.  Each costs a slab test and 128
-      Moller-Trumbore tests.
-    - ``warp``: the (warp of 32 rays, block) visits the kernel makes: the
-      plain walk with the kernel's warp mask, a block of a walked group
-      counting for a warp when one of its lanes enters the box (K2: no
-      farther than the best t so far; K3: live and not yet blocked).
-      Each costs 32 slab tests and 32 x 128 Moller-Trumbore tests.
+
+def walk_work(counts, rays_packed, lists, tn_sorted, rows_of, boxes, tile: int = TILE,
+              group: int = GROUP, closest: bool = True) -> tuple[int, int]:
+    """Two counts of the work of a list walk on these inputs, beside
+    ``walk_tests``' tile walk: K2 (``closest``) or K3 with ``rows_of`` =
+    ``flat_rows(tri)`` and ``boxes`` = ``block_boxes(tri, aabb)``; K6 or K7
+    with ``two_level.pair_rows`` and ``pair_aabb``.  ``boxes`` is the box
+    table the list entries index, each entry clamped into it as the kernels
+    clamp.  A list entry is a block (K2/K3) or an (instance, block) pair
+    (K6/K7):
+
+    - ``least``: ray-entry visits that any front-to-back walk of these
+      lists must make.  For each live ray, the entries of its tile's list
+      (the first ``counts``) whose box it enters at an entry distance no
+      greater than its final t (the plain version's hit distance; tmax on a
+      miss), and for the any-hit walk only up to its first blocking entry
+      in list order.  Each costs a slab test and 128 Moller-Trumbore tests.
+    - ``warp``: the (warp of 32 rays, entry) visits the kernel makes: the
+      plain walk with the kernel's warp mask, an entry of a walked group
+      counting for a warp when one of its lanes enters the box (closest
+      hit: no farther than the best t so far; any hit: live and not yet
+      blocked).  Each costs 32 slab tests and 32 x 128 Moller-Trumbore
+      tests.
     """
     npad = rays_packed.shape[1]
     n_tiles = npad // tile
     dev = rays_packed.device
     nbpad = lists.shape[1]
-    ids = lists.to(torch.int64).clamp(max=tri.shape[1] // BLOCK - 1)  # as the kernels clamp
+    ids = lists.to(torch.int64).clamp(max=boxes.shape[0] - 1)  # as the kernels clamp
     warp = 0
     stop = torch.full((n_tiles, 1, tile), nbpad, dtype=torch.int64, device=dev)
     live = (rays_packed[7] > rays_packed[6]).reshape(n_tiles, 1, tile)
@@ -530,7 +543,7 @@ def walk_work(counts, rays_packed, lists, tn_sorted, tri, aabb, tile: int = TILE
     def observe(r, e, t, hit, best0, blocked0):
         nonlocal warp
         a, g = r.numel(), e.numel()
-        tn, inside = _ray_boxes(rays_packed, aabb, ids, r, e, tile)  # (A, G, tile)
+        tn, inside = _ray_boxes(rays_packed, boxes, ids, r, e, tile)  # (A, G, tile)
         hb = hit.reshape(a, g, BLOCK, tile)
         if closest:
             tb = torch.where(hb, t.reshape(a, g, BLOCK, tile), BIG).amin(dim=2)
@@ -545,8 +558,8 @@ def walk_work(counts, rays_packed, lists, tn_sorted, tri, aabb, tile: int = TILE
             stop[r] = torch.where(blocked0, stop[r], first)
         warp += int(enter.reshape(a, g, tile // 32, 32).any(dim=3).sum())
 
-    out = _walk_plain(counts, rays_packed, lists, tn_sorted, flat_rows(tri), tile, group,
-                      closest, observe=observe)
+    out = _walk_plain(counts, rays_packed, lists, tn_sorted, rows_of, tile, group, closest,
+                      observe=observe)
     final_t = out[0].reshape(n_tiles, 1, tile) if closest else None
     least = 0
     counts64 = counts.to(torch.int64)
@@ -554,7 +567,7 @@ def walk_work(counts, rays_packed, lists, tn_sorted, tri, aabb, tile: int = TILE
     for p0 in range(0, int(counts64.max()) if n_tiles else 0, step):
         r = (counts64 > p0).nonzero().squeeze(1)
         pos = torch.arange(p0, min(p0 + step, nbpad), device=dev)
-        tn, inside = _ray_boxes(rays_packed, aabb, ids, r, pos, tile)  # (A, P, tile)
+        tn, inside = _ray_boxes(rays_packed, boxes, ids, r, pos, tile)  # (A, P, tile)
         ok = inside & (pos[None, :, None] < counts64[r][:, None, None])
         if closest:
             ok = ok & (tn <= final_t[r])

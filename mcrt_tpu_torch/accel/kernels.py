@@ -36,19 +36,20 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-_HEADERS = ("blocked.cuh",)
+_HEADERS = ("blocked.cuh", "walk.cuh")
 _UNITS = ("blocked.cu", "dense.cu", "two_level.cu", "vpu.cu")
 _SOURCES = _HEADERS + _UNITS
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # Float contraction: -fmad=false and no --use_fast_math, so every multiply
-# and add of K1 and K4-K9 rounds on its own as in the plain versions (K8/K9
-# fuse with explicit __fmaf_rn where their reference does).  The visit-list
-# walks K2/K3 fuse their test with explicit __fmaf_rn and are held to their
-# plain versions within a stated tolerance instead (csrc/blocked.cu).
+# and add of K1, K4/K5 and K8/K9 rounds on its own as in the plain versions
+# (K8/K9 fuse with explicit __fmaf_rn where their reference does), and so
+# do K6/K7's world-space rows.  The list walks K2/K3 and K6/K7 prefilter
+# with a test fused by explicit __fmaf_rn and are held to their plain
+# versions within a stated tolerance instead (csrc/walk.cuh).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 DENSE_MAX_SLOTS = 1024  # K4/K5 stage the whole table: 8 blocks of 128 slots
-WALK_MAX_TILE = 256  # K2/K3's launch bound (MCRT_WALK_MAX_TILE in csrc/blocked.cu)
+WALK_MAX_TILE = 256  # the list walks' launch bound (MCRT_WALK_MAX_TILE in csrc/walk.cuh)
 
 
 def _nvcc() -> str:
@@ -131,8 +132,8 @@ class _KernelLibrary:
         lib.mcrt_occluded.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.mcrt_dense_closest.argtypes = [p, p, p, p, i, i, p]
         lib.mcrt_dense_any.argtypes = [p, p, p, i, i, p]
-        lib.mcrt_closest2.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.mcrt_occluded2.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.mcrt_closest2.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.mcrt_occluded2.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.mcrt_vpu_chain_f32.argtypes = [p, p, i, i, p]
         lib.mcrt_vpu_chain_bf16.argtypes = [p, p, i, i, p]
         lib.mcrt_vpu_matmul.argtypes = [p, p, p, i, i, p]
@@ -231,15 +232,16 @@ def _check_walk(counts, rays_packed, lists, tri, tile, group):
     return dev, npad, nbpad
 
 
-def _check_boxes(dev, tile, tri, aabb, nbpad):
-    """K2/K3's extra checks: the tile within their launch bound, the block
-    boxes (NBpad, 8), and both tables on 16-byte boundaries (the kernels
-    copy them to shared memory 16 bytes at a time)."""
+def _check_boxes(dev, tile, tri, boxes, rows, name="aabb"):
+    """The list walks' extra checks: the tile within their launch bound,
+    the box table the lists index ((NBpad, 8) block boxes for K2/K3,
+    (Ppad, 8) pair boxes for K6/K7), and both tables on 16-byte boundaries
+    (the kernels copy them to shared memory 16 bytes at a time)."""
     if tile > WALK_MAX_TILE:
-        raise ValueError(f"tile {tile} exceeds the visit-list walks' {WALK_MAX_TILE}")
-    _require(aabb, "aabb", torch.float32, (nbpad, 8), dev)
-    if tri.data_ptr() % 16 or aabb.data_ptr() % 16:
-        raise ValueError("tri and aabb must start on 16-byte boundaries")
+        raise ValueError(f"tile {tile} exceeds the list walks' {WALK_MAX_TILE}")
+    _require(boxes, name, torch.float32, (rows, 8), dev)
+    if tri.data_ptr() % 16 or boxes.data_ptr() % 16:
+        raise ValueError(f"tri and {name} must start on 16-byte boundaries")
 
 
 def closest(counts, rays_packed, lists, tn_sorted, tri, aabb, tile: int, group: int):
@@ -326,14 +328,16 @@ def _check_pairs(dev, lists, pair_code, tw_rows):
     return tw_rows.numel() // 12
 
 
-def closest2(counts, rays_packed, lists, tn_sorted, tri, pair_code, tw_rows,
+def closest2(counts, rays_packed, lists, tn_sorted, tri, pair_code, tw_rows, pair_aabb,
              tile: int, group: int):
     """K6: (Npad,) best t (BIG on a miss), slot (-1 on a miss) and instance
     (-1 on a miss) of the walk over (instance, block) pair lists (replaces
-    ``two_level.py:_closest2_kernel``)."""
+    ``two_level.py:_closest2_kernel``); ``pair_aabb`` is the (Ppad, 8) pair
+    box table the lists index."""
     dev, npad, ppad = _check_walk(counts, rays_packed, lists, tri, tile, group)
     _require(tn_sorted, "tn_sorted", torch.float32, tuple(lists.shape), dev)
     n_inst = _check_pairs(dev, lists, pair_code, tw_rows)
+    _check_boxes(dev, tile, tri, pair_aabb, ppad, "pair_aabb")
     t = torch.empty((npad,), dtype=torch.float32, device=dev)
     slot = torch.empty((npad,), dtype=torch.int32, device=dev)
     inst = torch.empty((npad,), dtype=torch.int32, device=dev)
@@ -341,27 +345,28 @@ def closest2(counts, rays_packed, lists, tn_sorted, tri, pair_code, tw_rows,
         return t, slot, inst
     err = LIBRARY.get().mcrt_closest2(
         counts.data_ptr(), rays_packed.data_ptr(), lists.data_ptr(), tn_sorted.data_ptr(),
-        pair_code.data_ptr(), tw_rows.data_ptr(), tri.data_ptr(), t.data_ptr(),
-        slot.data_ptr(), inst.data_ptr(), npad, tile, ppad, tri.shape[1], n_inst, group,
-        _stream(dev))
+        pair_code.data_ptr(), tw_rows.data_ptr(), pair_aabb.data_ptr(), tri.data_ptr(),
+        t.data_ptr(), slot.data_ptr(), inst.data_ptr(), npad, tile, ppad, tri.shape[1],
+        n_inst, group, _stream(dev))
     closest2.launches += 1
     _check_launch(err, "K6 closest2")
     return t, slot, inst
 
 
-def occluded2(counts, rays_packed, lists, tri, pair_code, tw_rows, tile: int,
+def occluded2(counts, rays_packed, lists, tri, pair_code, tw_rows, pair_aabb, tile: int,
               group: int):
     """K7: (Npad,) 1.0 where an instance blocks the segment, else 0.0
-    (replaces ``two_level.py:_occluded2_kernel``)."""
+    (replaces ``two_level.py:_occluded2_kernel``); ``pair_aabb`` as for K6."""
     dev, npad, ppad = _check_walk(counts, rays_packed, lists, tri, tile, group)
     n_inst = _check_pairs(dev, lists, pair_code, tw_rows)
+    _check_boxes(dev, tile, tri, pair_aabb, ppad, "pair_aabb")
     out = torch.empty((npad,), dtype=torch.float32, device=dev)
     if npad == 0:
         return out
     err = LIBRARY.get().mcrt_occluded2(
         counts.data_ptr(), rays_packed.data_ptr(), lists.data_ptr(), pair_code.data_ptr(),
-        tw_rows.data_ptr(), tri.data_ptr(), out.data_ptr(), npad, tile, ppad,
-        tri.shape[1], n_inst, group, _stream(dev))
+        tw_rows.data_ptr(), pair_aabb.data_ptr(), tri.data_ptr(), out.data_ptr(), npad,
+        tile, ppad, tri.shape[1], n_inst, group, _stream(dev))
     occluded2.launches += 1
     _check_launch(err, "K7 occluded2")
     return out

@@ -8,9 +8,12 @@ transformed block.  The flat engine's cull (kernel K1) and visit-list sort
 then run unchanged over the pair boxes, giving per-tile front-to-back pair
 lists, so cull and walk cost scale with the pairs entered, not with the
 instances that exist.  The walk (kernel K6 closest hit / K7 any hit,
-``csrc/two_level.cu``) differs from K2/K3 only per visit: it decodes
-(block, instance) from the pair code and transforms the block's p0/e1/e2
-rows to world space by the instance's 3x4 ``tw_rows`` before testing the
+``csrc/two_level.cu``) is K2/K3's (the fused prefilter, the per-warp skip,
+here of pairs whose box ``pair_aabb`` no lane enters, and ``cp.async``
+staging), held to its plain version within the same stated tolerance.  It
+differs per visit: it decodes (block, instance) from the pair code and
+transforms the block's p0/e1/e2 rows to world space by the instance's 3x4
+``tw_rows`` (``_world_rows``' arithmetic, bit for bit) before testing the
 untransformed world rays, so t needs no rescaling.
 
 The host build (``build_two_level``, ``build_two_level_scene``) is the JAX
@@ -285,16 +288,19 @@ def pair_lists(rays_packed, accel: TwoLevelAccel):
 
 def _query2_closest(rays_packed, accel: TwoLevelAccel):
     counts, lists, tn_sorted = pair_lists(rays_packed, accel)
-    closest = _kernel_or_plain(rays_packed, kernels.closest2, closest2_plain)
-    return closest(counts, rays_packed, lists, tn_sorted, accel.blas.tri, accel.pair_code,
-                   accel.tw_rows, TILE, GROUP)
+    args = (accel.blas.tri, accel.pair_code, accel.tw_rows)
+    if rays_packed.device.type == "cpu":  # as _kernel_or_plain; K6 also takes the pair boxes
+        return closest2_plain(counts, rays_packed, lists, tn_sorted, *args, TILE, GROUP)
+    return kernels.closest2(counts, rays_packed, lists, tn_sorted, *args, accel.pair_aabb,
+                            TILE, GROUP)
 
 
 def _query2_any(rays_packed, accel: TwoLevelAccel):
     counts, lists, _ = pair_lists(rays_packed, accel)
-    occluded = _kernel_or_plain(rays_packed, kernels.occluded2, occluded2_plain)
-    return occluded(counts, rays_packed, lists, accel.blas.tri, accel.pair_code,
-                    accel.tw_rows, TILE, GROUP)
+    args = (accel.blas.tri, accel.pair_code, accel.tw_rows)
+    if rays_packed.device.type == "cpu":
+        return occluded2_plain(counts, rays_packed, lists, *args, TILE, GROUP)
+    return kernels.occluded2(counts, rays_packed, lists, *args, accel.pair_aabb, TILE, GROUP)
 
 
 def _resolve_uv2(accel: TwoLevelAccel, slot, inst, rays: Rays):

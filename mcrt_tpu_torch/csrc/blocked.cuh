@@ -1,15 +1,15 @@
 // Shared device functions of the intersector kernels K1-K7: NaN-propagating
-// min/max, the ray-slab test, the Moller-Trumbore test of K4-K7 and the
-// block-wide max of the two-level walks' early exit.
+// min/max, the ray-slab test and the Moller-Trumbore test.
 //
 // Every formula follows mcrt_tpu_torch/accel/blocked.py (_ray_rows, _slab,
 // _mt) operation for operation.  The library is compiled with -fmad=false
 // and without --use_fast_math (float contraction), so each
 // multiply and add rounds on its own exactly as the plain PyTorch versions
-// do, and `1.0f / x` is an IEEE division: K1 and K4-K7 equal their plain
-// versions bit for bit.  The visit-list walks K2/K3 (blocked.cu) fuse on
-// purpose, with explicit __fmaf_rn, and defer the division in their own
-// test; they are held to their plain versions within a stated tolerance.
+// do, and `1.0f / x` is an IEEE division: K1, K4 and K5 equal their plain
+// versions bit for bit.  The list walks K2/K3 and K6/K7 (walk.cuh) decide
+// every hit with mt_hit but prefilter with a test of their own that fuses
+// on purpose, with explicit __fmaf_rn, and defers the division; they are
+// held to their plain versions within a stated tolerance.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,24 +85,4 @@ __device__ __forceinline__ bool mt_hit(float p0x, float p0y, float p0z,
     *t_out = t;
     return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmn &&
            t < tmx && t < best_t;
-}
-
-// Block-wide max of one float per thread (blockDim a multiple of 32).
-__device__ __forceinline__ float block_max(float v, float* s_red) {
-    for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (lane == 0) s_red[warp] = v;
-    __syncthreads();
-    float r = s_red[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fmaxf(r, s_red[w]);
-    __syncthreads();  // s_red is reused by the next call
-    return r;
-}
-
-// Dynamic shared memory of one staged group of a walk: 9 rows of group*128
-// triangle floats plus `ids` ints per group entry (K6/K7 stage one group,
-// K2/K3 two, with the blocks' boxes).
-inline size_t walk_smem(int group, int ids) {
-    return (size_t)9 * group * MCRT_BLOCK * sizeof(float) + (size_t)ids * group * sizeof(int);
 }

@@ -267,10 +267,12 @@ def test_wrappers_take_plain_versions_on_cpu_only(case):
     assert not any(kernels.launch_counts().values())
 
 
-def _brute_least_visits(tacc, packed, counts, lists, t_final, tile, closest):
-    """``walk_work``'s least count, ray by ray and block by block: the
-    entered blocks of the ray's list with an entry distance no greater
-    than its final t (K2), or up to its first blocking block (K3)."""
+def brute_least_visits(boxes, rows_of, packed, counts, lists, t_final, tile, closest):
+    """``walk_work``'s least count, ray by ray and list entry by list entry:
+    the entered entries (blocks, or (instance, block) pairs) of the ray's
+    list with an entry distance no greater than its final t (closest hit),
+    or up to its first blocking entry (any hit).  ``boxes`` is the box
+    table the entries index, ``rows_of`` the walk's group loader."""
     total = 0
     for col in range(packed.shape[1]):
         ox, oy, oz, dx, dy, dz, ix, iy, iz, tmn, tmx = tb._ray_rows(packed[:, col, None])
@@ -278,16 +280,17 @@ def _brute_least_visits(tacc, packed, counts, lists, t_final, tile, closest):
             continue
         row = col // tile
         for p in range(int(counts[row])):
-            b = int(lists[row, p])
-            box = tacc.aabb[b]
+            e = int(lists[row, p])
+            box = boxes[e]
             tn, tf = tb._slab(box[0:3], box[3:6], (ox, oy, oz), (ix, iy, iz), tmn, tmx)
             entered = bool(tn <= tf)
             if closest:
                 total += entered and bool(tn <= t_final[col])
                 continue
             total += entered
-            tri9 = [tacc.tri[c, b * tb.BLOCK:(b + 1) * tb.BLOCK] for c in range(9)]
-            _, hit = tb._mt(tri9, (ox, oy, oz), (dx, dy, dz), tmn, tmx, tb.BIG)
+            tri9, _, _ = rows_of(torch.tensor([[e]]))  # each (1, 128, 1)
+            _, hit = tb._mt([c[0, :, 0] for c in tri9], (ox, oy, oz), (dx, dy, dz), tmn, tmx,
+                            tb.BIG)
             if bool(hit.any()):
                 break
     return total
@@ -302,10 +305,10 @@ def test_least_walk_work_equals_a_brute_loop(gallery, closest):
     packed, _ = tb._sorted_table(tr, tacc, True)
     counts, lists, tn = tb.lists_from_keys(tb.cull_plain(packed, tacc.chunk_aabb, tacc.aabb))
     t_final, _ = tb.closest_plain(counts, packed, lists, tn, tacc.tri)
-    least, warp = tb.walk_work(counts, packed, lists, tn, tacc.tri, tacc.aabb,
-                               closest=closest)
-    assert least == _brute_least_visits(tacc, packed, counts, lists, t_final, tb.TILE,
-                                        closest)
+    rows, boxes = tb.flat_rows(tacc.tri), tb.block_boxes(tacc.tri, tacc.aabb)
+    least, warp = tb.walk_work(counts, packed, lists, tn, rows, boxes, closest=closest)
+    assert least == brute_least_visits(boxes, rows, packed, counts, lists, t_final, tb.TILE,
+                                       closest)
     assert 0 < least and 0 < warp <= int(counts.sum()) * tb.TILE // 32
 
 
@@ -323,8 +326,8 @@ def test_walk_work_is_at_most_the_tile_walk(case, closest):
             tb.cull_plain(packed, tacc.chunk_aabb, tacc.aabb, tile))
         tests, _ = tb.walk_tests(counts, packed, lists, tn if closest else None,
                                  tb.flat_rows(tacc.tri), tile, group, closest)
-        least, warp = tb.walk_work(counts, packed, lists, tn, tacc.tri, tacc.aabb, tile,
-                                   group, closest)
+        least, warp = tb.walk_work(counts, packed, lists, tn, tb.flat_rows(tacc.tri),
+                                   tb.block_boxes(tacc.tri, tacc.aabb), tile, group, closest)
         assert 0 < least * tb.BLOCK <= warp * 32 * tb.BLOCK <= tests
         found.append(least)
     assert found[0] == found[1] or not closest

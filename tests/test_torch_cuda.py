@@ -8,13 +8,14 @@ no JAX installed (the repository's ``conftest.py`` imports JAX, hence
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tests marked ``cuda`` skip themselves where ``torch.cuda.is_available()`` is
-false.  Tolerances: cull keys and the dense and two-level any-hit flags
-are equal (those kernels use the plain versions' formulas without fused
-multiply-add); their closest-hit flags and slots are equal and distances
-agree to rtol 1e-5.  The visit-list walks K2/K3 fuse their test and skip,
-per warp, blocks none of its rays enters, so a ray may differ (a flag, a
-slot, or t beyond rtol 1e-5 on the same slot) on at most 1e-4 of the live
-rays, and never fewer than 2 rays are allowed; the K8 chains
+false.  Tolerances: cull keys and the dense any-hit flags are equal
+(those kernels use the plain versions' formulas without fused
+multiply-add); the dense closest-hit flags and slots are equal and
+distances agree to rtol 1e-5.  The list walks K2/K3 and K6/K7 prefilter
+with a fused test and skip, per warp, list entries none of its rays
+enters, so a ray may differ (a flag, a slot, an instance, or t beyond rtol
+1e-5 on the same slot and instance) on at most 1e-4 of the live rays, and
+never fewer than 2 rays are allowed; the K8 chains
 are bit-equal to ``chain_plain`` (the same single roundings) and the K9
 products lie within the dot-product bound ``2 * k * 2**-24 * (|a| @ |b|)``
 of ``matmul_plain``.
@@ -76,14 +77,20 @@ def _rays(n, seed, device):
 
 
 def _walk_allowed(packed) -> int:
-    """Rays on which K2/K3 may differ from their plain versions."""
+    """Rays on which a list walk (K2/K3, K6/K7) may differ from its plain
+    version."""
     return max(2, int(1e-4 * int((packed[7] > packed[6]).sum())))
 
 
 def _closest_differing(kern, plain) -> int:
-    (t_k, s_k), (t_p, s_p) = kern, plain
-    same = (s_k >= 0) & (s_k == s_p)
-    return int(((s_k != s_p) | (same & ~torch.isclose(t_k, t_p, rtol=1e-5, atol=0.0))).sum())
+    """Rays whose slot or instance (K6), or t on the same slot and
+    instance, differs between a closest-hit walk and its plain version."""
+    (t_k, s_k, *i_k), (t_p, s_p, *i_p) = kern, plain
+    bad = s_k != s_p
+    for a, b in zip(i_k, i_p):
+        bad = bad | ((s_k >= 0) & (a != b))
+    same = (s_k >= 0) & ~bad
+    return int((bad | (same & ~torch.isclose(t_k, t_p, rtol=1e-5, atol=0.0))).sum())
 
 
 @pytest.mark.cuda
@@ -210,24 +217,60 @@ def test_dense_kernels_match_plain_versions(gallery_cuda, blocks):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile, group", [(128, 4), (256, 1), (64, 3)])
+@pytest.mark.parametrize("tile, group", [(128, 4), (256, 1), (64, 3), (128, 8)])
 def test_two_level_kernels_match_plain_versions(boxes_cuda, tile, group):
+    """K1 over the pair boxes equal to its plain version, K6/K7 within the
+    stated tolerance; group 8 stages a raw and a world buffer of 37 KB
+    each, past the 48 KB that needs no opt-in."""
     _, acc = boxes_cuda
     rays = _rays(5000, seed=tile + group, device=acc.blas.tri.device)
     packed, _ = tb._sorted_table(rays, acc, True)
     keys = kernels.cull(packed, acc.pair_chunk, acc.pair_aabb, tile)
     assert torch.equal(keys, tb.cull_plain(packed, acc.pair_chunk, acc.pair_aabb, tile))
     counts, lists, tn = tb.lists_from_keys(keys)
-    args = (acc.blas.tri, acc.pair_code, acc.tw_rows, tile, group)
+    args = (acc.blas.tri, acc.pair_code, acc.tw_rows)
+    allowed = _walk_allowed(packed)
     before = kernels.launch_counts()
-    hits = _check_closest(kernels.closest2(counts, packed, lists, tn, *args),
-                          ttl.closest2_plain(counts, packed, lists, tn, *args))
-    b_k = kernels.occluded2(counts, packed, lists, *args)
-    assert torch.equal(b_k, ttl.occluded2_plain(counts, packed, lists, *args))
+    out = kernels.closest2(counts, packed, lists, tn, *args, acc.pair_aabb, tile, group)
+    plain = ttl.closest2_plain(counts, packed, lists, tn, *args, tile, group)
+    assert _closest_differing(out, plain) <= allowed
+    b_k = kernels.occluded2(counts, packed, lists, *args, acc.pair_aabb, tile, group)
+    b_p = ttl.occluded2_plain(counts, packed, lists, *args, tile, group)
+    assert int((b_k != b_p).sum()) <= allowed
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert {k: after[k] - before[k] for k in ("K6", "K7")} == {"K6": 1, "K7": 1}
-    assert hits > 100 and int(b_k.sum()) > 100
+    assert int((out[1] >= 0).sum()) > 100 and int(b_k.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_a_warp_entering_no_listed_pair_box_misses(boxes_cuda):
+    """K6/K7 on one tile whose last warp of rays leaves the scene from
+    beyond its upper corner: the tile's pair list comes from the other
+    rays (``instanced_boxes``' rotated instances give loose pair boxes),
+    that warp skips every listed pair and returns misses and unblocked
+    flags."""
+    _, acc = boxes_cuda
+    dev = acc.blas.tri.device
+    rays = _rays(tb.TILE, seed=9, device=dev)
+    away = torch.arange(tb.TILE, device=dev) >= tb.TILE - 32
+    o = torch.where(away[:, None], acc.bounds[1] + 1.0, rays.o)
+    d = torch.where(away[:, None], rays.d.abs(), rays.d)
+    rays = Rays.make(o.contiguous(), d.contiguous(), tmax=rays.tmax, active=rays.active | away)
+    packed = tb._pack_table(tb._ray_table(rays))  # unsorted: the warp stays one warp
+    counts, lists, tn = tb.lists_from_keys(kernels.cull(packed, acc.pair_chunk, acc.pair_aabb,
+                                                        tb.TILE))
+    assert int(counts[0]) > 0
+    args = (acc.blas.tri, acc.pair_code, acc.tw_rows)
+    for group in (tb.GROUP, 8):
+        t, slot, inst = kernels.closest2(counts, packed, lists, tn, *args, acc.pair_aabb,
+                                         tb.TILE, group)
+        blocked = kernels.occluded2(counts, packed, lists, *args, acc.pair_aabb, tb.TILE, group)
+        assert (slot[away] == -1).all() and (inst[away] == -1).all()
+        assert (t[away] == tb.BIG).all() and (blocked[away] == 0.0).all()
+        assert int((slot[~away] >= 0).sum()) > 10
+        assert _closest_differing((t, slot, inst), ttl.closest2_plain(
+            counts, packed, lists, tn, *args, tb.TILE, group)) <= _walk_allowed(packed)
 
 
 @pytest.mark.cuda
@@ -263,12 +306,26 @@ def test_new_wrappers_refuse_bad_inputs(gallery_cuda, boxes_cuda):
         kernels.dense_any(packed, acc.tri[:, :128].double())
     _, two = boxes_cuda
     counts, lists, tn = ttl.pair_lists(packed, two)
+    tri, code, tw, box = two.blas.tri, two.pair_code, two.tw_rows, two.pair_aabb
     with pytest.raises(TypeError):
-        kernels.closest2(counts, packed, lists, tn, two.blas.tri, two.pair_code.long(),
-                         two.tw_rows, tb.TILE, tb.GROUP)
+        kernels.closest2(counts, packed, lists, tn, tri, code.long(), tw, box, tb.TILE,
+                         tb.GROUP)
     with pytest.raises(ValueError, match="tw_rows"):
-        kernels.occluded2(counts, packed, lists, two.blas.tri, two.pair_code,
-                          two.tw_rows[:-1], tb.TILE, tb.GROUP)
+        kernels.occluded2(counts, packed, lists, tri, code, tw[:-1], box, tb.TILE, tb.GROUP)
+    with pytest.raises(ValueError, match="pair_aabb"):
+        kernels.closest2(counts, packed, lists, tn, tri, code, tw, box[:-1], tb.TILE,
+                         tb.GROUP)
+    with pytest.raises(TypeError):
+        kernels.occluded2(counts, packed, lists, tri, code, tw, box.double(), tb.TILE,
+                          tb.GROUP)
+    shifted = torch.empty(box.numel() + 1, device=box.device)[1:].view(box.shape)
+    shifted.copy_(box)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.occluded2(counts, packed, lists, tri, code, tw, shifted, tb.TILE, tb.GROUP)
+    wide = tb._pack_table(tb._ray_table(_rays(512, seed=2, device=acc.tri.device)))
+    wc, wl, wt = tb.lists_from_keys(kernels.cull(wide, two.pair_chunk, box, 512))
+    with pytest.raises(ValueError, match="tile 512"):
+        kernels.closest2(wc, wide, wl, wt, tri, code, tw, box, 512, tb.GROUP)
 
 
 @pytest.mark.cuda

@@ -32,7 +32,7 @@ from mcrt_tpu_torch.accel import two_level as ttl
 from mcrt_tpu_torch.config import (AccelType, IntegratorConfig, RenderConfig, SamplerConfig,
                                    SamplerType)
 from mcrt_tpu_torch.scene import builders as tbuild
-from tests.test_torch_blocked import T_TOL, both_rays, port_scene
+from tests.test_torch_blocked import T_TOL, both_rays, brute_least_visits, port_scene
 from tests.test_torch_render import _camera
 
 # one torch thread per test process (see test_torch_blocked.py)
@@ -275,12 +275,13 @@ def test_two_level_wrappers_take_cuda_tensors_only(case):
     counts, lists, tn = ttl.pair_lists(packed, tacc)
     kernels.reset_launch_counts()
     for dev in ("cpu", "meta"):
-        p, c, ls, t, tri, code, tw = (x.to(dev) for x in (
-            packed, counts, lists, tn, tacc.blas.tri, tacc.pair_code, tacc.tw_rows))
+        p, c, ls, t, tri, code, tw, box = (x.to(dev) for x in (
+            packed, counts, lists, tn, tacc.blas.tri, tacc.pair_code, tacc.tw_rows,
+            tacc.pair_aabb))
         with pytest.raises(ValueError, match="CUDA"):
-            kernels.closest2(c, p, ls, t, tri, code, tw, tb.TILE, tb.GROUP)
+            kernels.closest2(c, p, ls, t, tri, code, tw, box, tb.TILE, tb.GROUP)
         with pytest.raises(ValueError, match="CUDA"):
-            kernels.occluded2(c, p, ls, tri, code, tw, tb.TILE, tb.GROUP)
+            kernels.occluded2(c, p, ls, tri, code, tw, box, tb.TILE, tb.GROUP)
     assert not any(kernels.launch_counts().values())
 
 
@@ -325,3 +326,48 @@ def test_pair_walk_counts_are_unchanged(case):
     got = (tb.walk_tests(counts, packed, lists, tn, rows, tb.TILE, tb.GROUP, True),
            tb.walk_tests(counts, packed, lists, None, rows, tb.TILE, tb.GROUP, False))
     assert got == PAIR_WALK_TESTS[name]
+
+
+def _pair_work(tacc, packed, tile, group, closest):
+    """(lists, tile walk tests, per-ray floor, warp visits) of K6 (``closest``)
+    or K7 on these rays."""
+    counts, lists, tn = tb.lists_from_keys(
+        tb.cull_plain(packed, tacc.pair_chunk, tacc.pair_aabb, tile))
+    rows = ttl.pair_rows(tacc.blas.tri, tacc.pair_code, tacc.tw_rows)
+    tests, _ = tb.walk_tests(counts, packed, lists, tn if closest else None, rows, tile, group,
+                             closest)
+    least, warp = tb.walk_work(counts, packed, lists, tn, rows, tacc.pair_aabb, tile, group,
+                               closest)
+    return (counts, lists, tn), tests, least, warp
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_least_pair_walk_work_equals_a_brute_loop(case, closest):
+    """K6/K7's per-ray floor (``walk_work`` over ``pair_rows`` and
+    ``pair_aabb``) on 40 rays equals the count of a loop over rays and
+    list entries."""
+    _, jscene, _, _, tacc = case
+    _, tr = _rays(jscene, 40, seed=33)
+    packed, _ = tb._sorted_table(tr, tacc, True)
+    (counts, lists, tn), _, least, warp = _pair_work(tacc, packed, tb.TILE, tb.GROUP, closest)
+    rows = ttl.pair_rows(tacc.blas.tri, tacc.pair_code, tacc.tw_rows)
+    t_final = ttl.closest2_plain(counts, packed, lists, tn, tacc.blas.tri, tacc.pair_code,
+                                 tacc.tw_rows)[0]
+    assert least == brute_least_visits(tacc.pair_aabb, rows, packed, counts, lists, t_final,
+                                       tb.TILE, closest)
+    assert 0 < least and 0 < warp <= int(counts.sum()) * tb.TILE // 32
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_pair_walk_work_is_at_most_the_tile_walk(case, closest):
+    """K6/K7's warp visits cover the per-ray floor and never exceed the
+    tests of the tile walk, at the port's tile and group and at another."""
+    _, jscene, _, _, tacc = case
+    _, tr = _rays(jscene, 1000, seed=34)
+    packed, _ = tb._sorted_table(tr, tacc, True)
+    found = []
+    for tile, group in ((tb.TILE, tb.GROUP), (64, 3)):
+        _, tests, least, warp = _pair_work(tacc, packed, tile, group, closest)
+        assert 0 < least * tb.BLOCK <= warp * 32 * tb.BLOCK <= tests
+        found.append(least)
+    assert found[0] == found[1] or not closest
