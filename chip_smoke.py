@@ -48,14 +48,22 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    largest |dt|/t, and the walks' warp visits beside their per-ray floor
    are printed.
 3. Render parity: ``glass_gallery``, ``textured_hall`` and
-   ``instanced_boxes`` at 64x64, 1 spp, Sobol, max_depth 3, once on the
+   ``instanced_boxes`` at 64x64, 1 spp, Sobol, max_depth 3, and
+   ``glass_gallery`` again under the default RANDOM sampler, once on the
    card (kernels) and once on the CPU (plain versions) with the same port
-   code; at least 99% of pixels must agree to rtol 1e-3 / atol 1e-4.
+   code; at least 99% of pixels must agree to rtol 1e-3 / atol 1e-4.  Then
+   one RANDOM ``next_3d`` draw of 512x512 pixels (threefry, the JAX
+   package's stream) on the card must equal the CPU's bit for bit; its
+   time is printed.
 4. Main paths through ``Renderer`` at 512x512, 8 bounces, Sobol, SAH
    blocks, for a few progressive frames each, with the launch counters set
    to 0 just before and read just after: ``sphere_field`` (must launch
    K1-K3), ``textured_hall`` (K4/K5, and not K1-K3) and
-   ``sphere_field_instanced`` (K1, K6, K7, and not K2-K5).  Each image must
+   ``sphere_field_instanced`` (K1, K6, K7, and not K2-K5).  After the
+   ``sphere_field`` frames, one more frame keeps the inputs K1 is handed
+   (16 launches: 8 bounces, closest hit and shadow); each launch's keys
+   must equal ``cull_plain``'s, and K1's time on each and its bound are
+   summed and printed ("K1 a frame").  Each image must
    be finite with a positive mean, a frame run under torch's CUDA sync
    debug mode must make no synchronizing call, and the SAH builder must
    have run.  The instanced image's mean must agree with the baked
@@ -157,32 +165,6 @@ def bound(ops: int, moved: int, peak: float = PEAK_FLOPS):
     """(bound ms, "operations" or "bytes")."""
     ops_ms, bytes_ms = ops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def wavefronts(camera, intersect, device):
-    """A 512x512 wavefront of primary rays (Morton pixel order, as the
-    renderer traces them) and one of random bounce rays leaving the primary
-    hits in uniformly random directions."""
-    import torch
-
-    from mcrt_tpu_torch.camera.pinhole import pixel_uv
-    from mcrt_tpu_torch.core.types import Rays
-    from mcrt_tpu_torch.renderer import morton_pixel_order
-
-    order, _ = morton_pixel_order(WIDTH, HEIGHT)
-    uv = pixel_uv(WIDTH, HEIGHT, device=device)[torch.as_tensor(order, device=device).long()]
-    o, d = camera.generate_rays(uv)
-    primary = Rays.make(o.contiguous(), d)
-    hit = intersect(primary)
-    g = torch.Generator(device=device)
-    g.manual_seed(1234)
-    n = primary.n
-    dirs = torch.randn((n, 3), generator=g, device=device)
-    dirs = dirs / dirs.norm(dim=1, keepdim=True)
-    p = primary.at(torch.where(hit.valid, hit.t, 0.0)) + dirs * 1e-3
-    seg = 0.5 + 4.5 * torch.rand((n,), generator=g, device=device)
-    bounce = Rays.make(p, dirs, tmax=seg, active=hit.valid)
-    return {"primary": primary, "bounce": bounce}
 
 
 class KernelResults:
@@ -411,6 +393,7 @@ def visit_list_kernels(res, device):
     from mcrt_tpu_torch.accel import blocked, kernels
     from mcrt_tpu_torch.accel.blocked import build_blocked, intersect_blocked
     from mcrt_tpu_torch.scene.builders import sphere_field
+    from mcrt_tpu_torch.tools.wavefronts import wavefronts
 
     t0 = time.perf_counter()
     scene, camera = sphere_field(device=device)
@@ -457,6 +440,7 @@ def dense_kernels(res, device):
     from mcrt_tpu_torch.accel import blocked, kernels
     from mcrt_tpu_torch.accel.blocked import build_blocked, intersect_blocked
     from mcrt_tpu_torch.scene.builders import textured_hall
+    from mcrt_tpu_torch.tools.wavefronts import wavefronts
 
     scene, camera = textured_hall(device=device)
     accel = build_blocked(scene.geometry)
@@ -485,6 +469,7 @@ def two_level_kernels(res, device):
     from mcrt_tpu_torch.accel import blocked, kernels
     from mcrt_tpu_torch.accel import two_level as tl
     from mcrt_tpu_torch.scene.builders import sphere_field_instanced
+    from mcrt_tpu_torch.tools.wavefronts import wavefronts
 
     t0 = time.perf_counter()
     scene, camera = sphere_field_instanced(device=device)
@@ -530,7 +515,7 @@ def two_level_kernels(res, device):
                    floor_ops=least * visit + staged * OPS_STAGE)
 
 
-def parity_phase(name: str):
+def parity_phase(name: str, sampler: str = "SOBOL"):
     import torch
 
     from mcrt_tpu_torch import Renderer
@@ -539,8 +524,9 @@ def parity_phase(name: str):
     from mcrt_tpu_torch.scene import builders
 
     cfg = RenderConfig(width=64, height=64, spp=1,
-                       sampler=SamplerConfig(type=SamplerType.SOBOL),
+                       sampler=SamplerConfig(type=SamplerType[sampler]),
                        integrator=IntegratorConfig(max_depth=3))
+    label = f"{name} ({sampler.lower()})"
     images = {}
     for dev in ("cuda", "cpu"):
         scene, camera = getattr(builders, name)(device=dev)
@@ -548,21 +534,67 @@ def parity_phase(name: str):
         images[dev] = Renderer(scene, camera, cfg, device=dev).render().cpu()
         if dev == "cuda":
             torch.cuda.synchronize()
-        log(f"[parity] {name} 64x64 on {dev}: {time.perf_counter() - t0:.2f} s")
+        log(f"[parity] {label} 64x64 on {dev}: {time.perf_counter() - t0:.2f} s")
     close = torch.isclose(images["cuda"], images["cpu"], rtol=1e-3, atol=1e-4).all(dim=-1)
     share = close.float().mean().item()
-    log(f"[parity] {name}: pixels agreeing (rtol 1e-3, atol 1e-4): {share:.4f} "
+    log(f"[parity] {label}: pixels agreeing (rtol 1e-3, atol 1e-4): {share:.4f} "
         f"(mismatch {1 - share:.4f}); means {images['cuda'].mean():.5f} / "
         f"{images['cpu'].mean():.5f}")
     if share < PARITY_MIN_SHARE:
-        raise AssertionError(f"{name}: CUDA-vs-CPU render parity {share:.4f} < "
+        raise AssertionError(f"{label}: CUDA-vs-CPU render parity {share:.4f} < "
                              f"{PARITY_MIN_SHARE}")
     return share
 
 
-def main_path_phase(label, scene, camera, device, expect, forbid):
+def random_draw_phase(device):
+    """One RANDOM ``next_3d`` draw of a 512x512 wavefront (threefry, the
+    JAX package's stream) on the card: bit-equal to the same draw on the
+    CPU; its time is printed (median of ``KERNEL_REPS``)."""
+    import torch
+
+    from mcrt_tpu_torch.config import SamplerConfig
+    from mcrt_tpu_torch.sampling import rng
+
+    pixels = torch.arange(WIDTH * HEIGHT, dtype=torch.int32)
+    streams = {dev: rng.make_stream(SamplerConfig(seed=7), 3, pixels.to(dev)).advance(11)
+               for dev in (device, "cpu")}
+    ms, _, u = timed(lambda: rng.next_3d(streams[device])[0], KERNEL_REPS)
+    ref, _ = rng.next_3d(streams["cpu"])
+    equal = torch.equal(u.cpu().view(torch.int32), ref.view(torch.int32))
+    log(f"[random] next_3d of {WIDTH * HEIGHT} pixels on the card: {ms:.3f} ms (median of "
+        f"{KERNEL_REPS}), bit-equal to the CPU draw: {equal}")
+    if not equal:
+        raise AssertionError("the RANDOM draw on the card differs from the CPU draw")
+
+
+def cull_frame_phase(renderer, label):
+    """The inputs K1 is handed during one frame of ``renderer``: each
+    launch's keys equal to the plain version's; K1's time on each (median
+    of ``KERNEL_REPS``) and its bound, summed over the frame."""
+    import torch
+
+    from mcrt_tpu_torch.accel import blocked, kernels
+    from mcrt_tpu_torch.tools.wavefronts import cull_inputs_of_a_frame
+
+    inputs = cull_inputs_of_a_frame(renderer)
+    total_ms = total_bound = 0.0
+    for packed, chunk, boxes, tile in inputs:
+        ms, _, keys = timed(lambda: kernels.cull(packed, chunk, boxes, tile), KERNEL_REPS)
+        if not torch.equal(keys, blocked.cull_plain(packed, chunk, boxes, tile)):
+            raise AssertionError(f"{label}: K1 keys of a frame's launch differ from the "
+                                 "plain version")
+        b_ms, _ = bound(blocked.cull_tests(packed, chunk, boxes, tile) * OPS_SLAB,
+                        nbytes(packed, chunk, boxes, keys))
+        total_ms += ms
+        total_bound += b_ms
+    log(f"[{label}] K1 a frame: {total_ms:.4f} ms, bound {total_bound:.4f} ms, "
+        f"{len(inputs)} launches (keys equal to the plain version's on each)")
+
+
+def main_path_phase(label, scene, camera, device, expect, forbid, cull_frame=False):
     """``Renderer`` on ``scene``: returns (launch counts, ms/spp, rays/s,
-    image mean)."""
+    image mean); with ``cull_frame``, then ``cull_frame_phase`` on one more
+    frame."""
     import torch
 
     from mcrt_tpu_torch import Renderer
@@ -572,7 +604,7 @@ def main_path_phase(label, scene, camera, device, expect, forbid):
     from mcrt_tpu_torch.tools.profile_frame import sync_sites
     from mcrt_tpu_torch.tools.card import card_line
 
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=MAIN_FRAMES + 2,
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=MAIN_FRAMES + 3,
                        sampler=SamplerConfig(type=SamplerType.SOBOL),
                        bvh=BVHConfig(builder=BuilderType.SAH),
                        integrator=IntegratorConfig(max_depth=MAX_DEPTH))
@@ -633,6 +665,8 @@ def main_path_phase(label, scene, camera, device, expect, forbid):
         f"image mean {mean:.5f}, launches {counts}, "
         f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
         f"card {card_line()}")
+    if cull_frame:
+        cull_frame_phase(renderer, label)
     return counts, ms, rays_s, mean
 
 
@@ -667,8 +701,11 @@ def main() -> int:
         two_level_kernels(res, device)
         for name in ("glass_gallery", "textured_hall", "instanced_boxes"):
             parity_phase(name)
+        parity_phase("glass_gallery", "RANDOM")
+        random_draw_phase(device)
         paths = {
-            "main": main_path_phase("main", scene, camera, device, ("K1", "K2", "K3"), ()),
+            "main": main_path_phase("main", scene, camera, device, ("K1", "K2", "K3"), (),
+                                    cull_frame=True),
             "dense": main_path_phase("dense", *textured_hall(device=device), device,
                                      ("K4", "K5"), ("K1", "K2", "K3")),
             "instanced": main_path_phase("instanced", *sphere_field_instanced(device=device),

@@ -579,10 +579,17 @@ def walk_work(counts, rays_packed, lists, tn_sorted, rows_of, boxes, tile: int =
 
 def cull_tests(rays_packed: torch.Tensor, chunk_aabb: torch.Tensor,
                aabb: torch.Tensor, tile: int = TILE) -> int:
-    """Slab tests that K1 runs on these inputs: each (tile, chunk) pair with
-    a real chunk box tests the tile's rays against the chunk box; a chunk
-    that one of them enters then tests every real block of the chunk
-    against every ray of the tile."""
+    """Slab tests that K1 needs on these inputs, at three levels:
+
+    1. a tile with a live ray tests its rays against every real chunk box
+       (a tile whose rays all have tmax < tmin can enter no box, since
+       tn >= tmin > tmax >= tf, and tests nothing);
+    2. in each chunk that one of them enters, it tests its rays against
+       the union box of each group of 32 blocks (a warp's) that holds a
+       real block;
+    3. each ray that enters a group's union then tests the group's real
+       blocks.
+    """
     npad = rays_packed.shape[1]
     n_tiles = npad // tile
     ox, oy, oz, _, _, _, ix, iy, iz, tmn, tmx = _ray_rows(
@@ -590,11 +597,24 @@ def cull_tests(rays_packed: torch.Tensor, chunk_aabb: torch.Tensor,
     tn, tf = _slab(chunk_aabb[:, 0:3].T, chunk_aabb[:, 3:6].T, (ox, oy, oz),
                    (ix, iy, iz), tmn, tmx)  # (n_tiles, tile, n_chunks)
     entered = (tn <= tf).any(dim=1)  # (n_tiles, n_chunks)
-    real_chunk = ~torch.isnan(chunk_aabb[:, 0])
-    real_blocks = (~torch.isnan(aabb[:, 0])).reshape(-1, 128).sum(dim=1)
-    level1 = n_tiles * int(real_chunk.sum()) * tile
-    level2 = int((entered.sum(dim=0) * real_blocks).sum()) * tile
-    return level1 + level2
+    live_tiles = int((~(tmx < tmn)).any(dim=1).sum())
+    real_chunks = int((~torch.isnan(chunk_aabb[:, 0])).sum())
+    real = ~torch.isnan(aabb[:, 0])
+    real_in_group = real.reshape(-1, 32).sum(dim=1)  # (NBpad / 32,)
+    # the groups' union boxes, NaN where a group has no real block
+    inf = float("inf")
+    lo = torch.where(real[:, None], aabb[:, 0:3], inf).reshape(-1, 32, 3).amin(dim=1)
+    hi = torch.where(real[:, None], aabb[:, 3:6], -inf).reshape(-1, 32, 3).amax(dim=1)
+    lo = torch.where(real_in_group[:, None] > 0, lo, float("nan"))
+    total = live_tiles * real_chunks * tile
+    for c in entered.any(dim=0).nonzero().flatten().tolist():
+        r = entered[:, c]
+        g = slice(4 * c, 4 * c + 4)
+        gn, gf = _slab(lo[g].T, hi[g].T, (ox[r], oy[r], oz[r]), (ix[r], iy[r], iz[r]),
+                       tmn[r], tmx[r])  # (A, tile, 4)
+        total += int(r.sum()) * int((real_in_group[g] > 0).sum()) * tile
+        total += int(((gn <= gf).sum(dim=1) * real_in_group[g]).sum())
+    return total
 
 
 # --------------------------------------------------------------------------

@@ -63,19 +63,21 @@ def _nvcc() -> str:
                        "need the CUDA toolkit")
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
+        with open(os.path.join(csrc, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:16]
 
 
-class _KernelLibrary:
-    """The compiled kernel library: built once per source hash, loaded
-    once per process."""
+class KernelLibrary:
+    """The compiled kernel library of the sources in ``csrc`` (this
+    package's by default; ``tools/tree_ab.py`` builds other trees'): built
+    once per source hash, loaded once per process."""
 
-    def __init__(self):
+    def __init__(self, csrc: str = _CSRC):
+        self.csrc = csrc
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
         self.path: str | None = None
@@ -88,14 +90,14 @@ class _KernelLibrary:
             return self._lib
 
     def _build(self) -> str:
-        path = os.path.join(BUILD_DIR, f"libmcrt_kernels_{_source_hash()}.so")
+        path = os.path.join(BUILD_DIR, f"libmcrt_kernels_{_source_hash(self.csrc)}.so")
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tag = f"{os.getpid()}.tmp"
             nvcc = _nvcc()
             objs = [os.path.join(BUILD_DIR, f"{u}.{tag}.o") for u in _UNITS]
             procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o,
-                                       os.path.join(_CSRC, u)],
+                                       os.path.join(self.csrc, u)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
                      for u, o in zip(_UNITS, objs)]
@@ -145,7 +147,7 @@ class _KernelLibrary:
         return lib
 
 
-LIBRARY = _KernelLibrary()
+LIBRARY = KernelLibrary()
 
 
 def build() -> str:

@@ -16,71 +16,173 @@ namespace {
 // ---------------------------------------------------------------------------
 // K1 cull.  Replaces mcrt_tpu/accel/pallas_blocked.py:_cull_kernel.
 //
-// One CTA per (ray tile, 128-block chunk), one thread per block AABB.  The
-// tile's rays (origin, inverse direction, tmin, tmax) are staged once in
-// shared memory and read as broadcasts.  Level 1: the threads test the
-// tile's rays against the chunk's union box and __syncthreads_or decides
-// whether the chunk is skipped (no ray enters it, or no ray of the tile is
-// live).  Level 2: each thread walks the tile's rays and keeps the minimum
-// entry distance of its block.  One key row per tile: the TPU kernel's 8
-// duplicate rows are not written.
+// The keys: (n_tiles, NBpad) floats, per (ray tile, block) the least entry
+// distance over the tile's rays, BIG where none enters.  A CTA of 128
+// threads serves one ray tile and every `split`-th 128-block chunk of it
+// (grid (n_tiles, split)):
 //
-// Bound on the card: the slab test is about 20 flops per (ray, block)
-// pair, reading only shared memory, so K1 is arithmetic bound on entered
-// chunks; the chunk-level skip removes most pairs because blocks are SAH
-// ordered and chunks spatially compact.  Output is n_tiles * NBpad floats.
+// 1. Dead tile.  The CTA reads the tile's tmin and tmax first.  If every
+//    ray has tmax < tmin (inactive and padding rays carry tmax = -BIG), no
+//    ray can enter any box: tn >= tmin > tmax >= tf.  The CTA writes its
+//    chunks' keys as float4 BIG and returns.  This is the TPU kernel's
+//    any_live exit, on a condition that provably changes no key.  Inactive
+//    rays sort last, so in a real frame's late bounces nearly every tile
+//    takes it.
+// 2. Stage.  The tile's rays go to shared memory once, inverted once, as
+//    two float4s a ray, (o.xyz, tmin) and (1/d.xyz, tmax): a test reads
+//    them as 2 broadcast LDS.128.
+// 3. Level 1.  One warp per chunk, lanes over the tile's rays, stops at the
+//    first ray that enters the chunk's union box; a chunk no ray enters
+//    (or a NaN chunk) gets its 128 keys written as float4 BIG by that warp,
+//    an entered chunk goes onto a shared list.
+// 4. Level 2, over the listed chunks only.  Thread lane holds the box of
+//    block lane of the chunk.  Each warp first tests the tile's rays, 32 at
+//    a time, against the union box of its 32 blocks and then only the rays
+//    that enter it, 4 a step, with independent entry distances folded into
+//    the key by min (exact and order-free: the keys do not change).
+//
+// What bounds it on this card: the slab test, 6 subtracts, 6 multiplies
+// and 12 min/max (one PTX instruction each, blocked.cuh) on shared-memory
+// broadcasts, so entered chunks are operation bound (blocked.cull_tests
+// counts the three levels' tests); and the key write, n_tiles x NBpad
+// floats (24 MB on sphere_field's 512x512 wavefronts, about 7 us at 3.35
+// TB/s), which is the floor of a launch whose tiles are mostly dead.  The
+// second grid dimension is for the late bounces' few live tiles, which
+// enter about 10 chunks each: with one CTA a tile, such a tile tests its
+// chunks one after another while the rest of the card idles, and the
+// launch waits for it.  Measured on the H100 (PERF.md): one CTA a tile
+// made a real frame's launches 17% slower than 6 chunks a CTA, and 256
+// threads a CTA (two ray slices, their keys met in shared memory) slower
+// than 128.
 // ---------------------------------------------------------------------------
-__global__ void cull_kernel(const float* __restrict__ rays,
-                            const float* __restrict__ chunk_aabb,
-                            const float* __restrict__ aabb,
-                            float* __restrict__ keys, int npad, int tile,
-                            int nbpad) {
-    extern __shared__ float s_ray[];  // 8 rows of `tile`: o, 1/d, tmin, tmax
-    const int t = blockIdx.x;
-    const int c = blockIdx.y;
-    const int tid = threadIdx.x;
-    for (int r = tid; r < tile; r += blockDim.x) {
+#define CULL_CHUNKS_PER_CTA 6  // split = ceil(chunks / this): a CTA serves at most this many
+
+// Entry distance of the staged ray (o, inv) into box b, BIG where it does not enter.
+__device__ __forceinline__ float cull_entry(const float (&b)[6], float4 o, float4 inv) {
+    float tn;
+    return slab_enter(b, o.x, o.y, o.z, inv.x, inv.y, inv.z, o.w, inv.w, &tn) ? tn : MCRT_BIG;
+}
+
+__device__ __forceinline__ bool cull_enters(const float (&b)[6], float4 o, float4 inv) {
+    float tn;
+    return slab_enter(b, o.x, o.y, o.z, inv.x, inv.y, inv.z, o.w, inv.w, &tn);
+}
+
+__device__ __forceinline__ void load_box(const float* __restrict__ p, float (&b)[6]) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) b[k] = __ldg(p + k);
+}
+
+// Chunk c's 128 keys of this tile's row as BIG, one float4 a lane.
+__device__ __forceinline__ void write_big(float* __restrict__ row, int c, int lane) {
+    reinterpret_cast<float4*>(row + c * MCRT_BLOCK)[lane] =
+        make_float4(MCRT_BIG, MCRT_BIG, MCRT_BIG, MCRT_BIG);
+}
+
+// Level 2 of one warp: the key of this lane's block `box` over the tile's
+// rays that enter the warp's union box.
+__device__ __forceinline__ float block_key(const float (&box)[6], const float4* s_ray,
+                                           int tile, int lane) {
+    // A ray that misses the union of the warp's 32 blocks misses each of
+    // them (per axis a block's interval lies inside the union's, rounding
+    // being monotonic).  NaN boxes drop out of the union (fminf/fmaxf) and
+    // fail every test of their own.
+    float u[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+        float v = box[k];
+        for (int off = 16; off > 0; off >>= 1) {
+            const float w = __shfl_xor_sync(0xffffffffu, v, off);
+            v = k < 3 ? fminf(v, w) : fmaxf(v, w);
+        }
+        u[k] = v;
+    }
+    float key = MCRT_BIG;
+    for (int g = 0; g < tile; g += 32) {
+        const float4* grp = s_ray + 2 * g;
+        unsigned mask = __ballot_sync(0xffffffffu,
+                                      cull_enters(u, grp[2 * lane], grp[2 * lane + 1]));
+        while (mask) {  // 4 entering rays a step; a short step repeats its first
+            const int r0 = __ffs(mask) - 1;
+            mask &= mask - 1;
+            const int r1 = mask ? __ffs(mask) - 1 : r0;
+            mask &= mask - 1;
+            const int r2 = mask ? __ffs(mask) - 1 : r0;
+            mask &= mask - 1;
+            const int r3 = mask ? __ffs(mask) - 1 : r0;
+            mask &= mask - 1;
+            const float k0 = cull_entry(box, grp[2 * r0], grp[2 * r0 + 1]);
+            const float k1 = cull_entry(box, grp[2 * r1], grp[2 * r1 + 1]);
+            const float k2 = cull_entry(box, grp[2 * r2], grp[2 * r2 + 1]);
+            const float k3 = cull_entry(box, grp[2 * r3], grp[2 * r3 + 1]);
+            key = fminf(key, fminf(fminf(k0, k1), fminf(k2, k3)));
+        }
+    }
+    return key;
+}
+
+__global__ void __launch_bounds__(MCRT_BLOCK)
+    cull_kernel(const float* __restrict__ rays, const float* __restrict__ chunk_aabb,
+                const float* __restrict__ aabb, float* __restrict__ keys, int npad,
+                int tile, int nbpad) {
+    extern __shared__ float4 s_ray[];  // 2 a ray: (o.xyz, tmin), (1/d.xyz, tmax)
+    __shared__ int s_list[CULL_CHUNKS_PER_CTA];
+    __shared__ int s_count;
+    const int t = blockIdx.x, split = gridDim.y;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    constexpr int n_warps = MCRT_BLOCK / 32;
+    float* row = keys + (size_t)t * nbpad;
+    // this CTA's chunks: blockIdx.y, + split, ...
+    const int n_chunks = nbpad / MCRT_BLOCK;
+    const int mine = (n_chunks - (int)blockIdx.y + split - 1) / split;
+
+    int live = 0;
+    for (int r = tid; r < tile; r += MCRT_BLOCK)
+        live |= !(rays[7 * npad + t * tile + r] < rays[6 * npad + t * tile + r]);
+    if (!__syncthreads_or(live)) {
+        for (int i = warp; i < mine; i += n_warps)
+            write_big(row, blockIdx.y + i * split, lane);
+        return;
+    }
+    for (int r = tid; r < tile; r += MCRT_BLOCK) {
         const int col = t * tile + r;
-        s_ray[0 * tile + r] = rays[0 * npad + col];
-        s_ray[1 * tile + r] = rays[1 * npad + col];
-        s_ray[2 * tile + r] = rays[2 * npad + col];
-        s_ray[3 * tile + r] = safe_inv(rays[3 * npad + col]);
-        s_ray[4 * tile + r] = safe_inv(rays[4 * npad + col]);
-        s_ray[5 * tile + r] = safe_inv(rays[5 * npad + col]);
-        s_ray[6 * tile + r] = rays[6 * npad + col];
-        s_ray[7 * tile + r] = rays[7 * npad + col];
+        s_ray[2 * r] = make_float4(rays[col], rays[npad + col], rays[2 * npad + col],
+                                   rays[6 * npad + col]);
+        s_ray[2 * r + 1] = make_float4(safe_inv(rays[3 * npad + col]),
+                                       safe_inv(rays[4 * npad + col]),
+                                       safe_inv(rays[5 * npad + col]), rays[7 * npad + col]);
+    }
+
+    if (tid == 0) s_count = 0;
+    __syncthreads();
+
+    // level 1: chunk union boxes, a warp each
+    for (int i = warp; i < mine; i += n_warps) {
+        const int c = blockIdx.y + i * split;
+        float cb[6];
+        load_box(chunk_aabb + (size_t)c * 8, cb);
+        bool in = false;
+        if (!box_is_nan(cb)) {
+            for (int r = lane; r < tile; r += 32) {  // trip count uniform over the warp
+                in = __any_sync(0xffffffffu, cull_enters(cb, s_ray[2 * r], s_ray[2 * r + 1]));
+                if (in) break;
+            }
+        }
+        if (!in)
+            write_big(row, c, lane);
+        else if (lane == 0)
+            s_list[atomicAdd(&s_count, 1)] = c;
     }
     __syncthreads();
 
-#define MCRT_RAY(r)                                                        \
-    s_ray[(r)], s_ray[tile + (r)], s_ray[2 * tile + (r)],                  \
-        s_ray[3 * tile + (r)], s_ray[4 * tile + (r)], s_ray[5 * tile + (r)], \
-        s_ray[6 * tile + (r)], s_ray[7 * tile + (r)]
-
-    // level 1: the chunk's union box (NaN for an all-empty chunk: skipped)
-    const float* cb = chunk_aabb + c * 8;
-    int enter_any = 0;
-    if (!box_is_nan(cb)) {
-        for (int r = tid; r < tile && !enter_any; r += blockDim.x) {
-            float tn;
-            enter_any = slab_enter(cb, MCRT_RAY(r), &tn);
-        }
+    // level 2: the listed chunks' blocks against the tile's rays
+    const int listed = s_count;
+    for (int j = 0; j < listed; ++j) {
+        const int b = s_list[j] * MCRT_BLOCK + tid;
+        float box[6];
+        load_box(aabb + (size_t)b * 8, box);
+        row[b] = block_key(box, s_ray, tile, lane);
     }
-    enter_any = __syncthreads_or(enter_any);
-
-    // level 2: this thread's block against every ray of the tile
-    const int b = c * MCRT_BLOCK + tid;
-    float key = MCRT_BIG;
-    const float* bb = aabb + (size_t)b * 8;
-    if (enter_any && !box_is_nan(bb)) {
-        const float box[6] = {bb[0], bb[1], bb[2], bb[3], bb[4], bb[5]};
-        for (int r = 0; r < tile; ++r) {
-            float tn;
-            if (slab_enter(box, MCRT_RAY(r), &tn) && tn < key) key = tn;
-        }
-    }
-#undef MCRT_RAY
-    keys[(size_t)t * nbpad + b] = key;
 }
 
 // ---------------------------------------------------------------------------
@@ -226,8 +328,9 @@ extern "C" {
 
 int mcrt_cull(const float* rays, const float* chunk_aabb, const float* aabb,
               float* keys, int npad, int tile, int nbpad, void* stream) {
-    const dim3 grid(npad / tile, nbpad / MCRT_BLOCK);
-    cull_kernel<<<grid, MCRT_BLOCK, 8 * tile * sizeof(float),
+    const int n_chunks = nbpad / MCRT_BLOCK;
+    const dim3 grid(npad / tile, (n_chunks + CULL_CHUNKS_PER_CTA - 1) / CULL_CHUNKS_PER_CTA);
+    cull_kernel<<<grid, MCRT_BLOCK, 2 * tile * sizeof(float4),
                   static_cast<cudaStream_t>(stream)>>>(rays, chunk_aabb, aabb,
                                                        keys, npad, tile, nbpad);
     return static_cast<int>(cudaGetLastError());

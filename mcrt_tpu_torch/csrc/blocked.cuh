@@ -21,15 +21,20 @@
 // stored as NaN boxes so that every slab test on them fails.  CUDA's
 // fminf/fmaxf DROP a NaN operand (fmaxf(NaN, tmin) == tmin), which would let
 // every ray enter an empty box; these propagate NaN like torch.minimum /
-// jnp.minimum, and the kernels also test a box for NaN before using it.
+// jnp.minimum, one PTX instruction each (min.NaN / max.NaN, sm_80 and
+// later), and the kernels also test a box for NaN before using it.  Of two
+// zeros of opposite sign either may come back, so an entry distance may
+// differ from the plain version's only in the sign of a zero.
 __device__ __forceinline__ float nan_min(float a, float b) {
-    if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
-    return b < a ? b : a;
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
-    if (isnan(a) || isnan(b)) return __int_as_float(0x7fc00000);
-    return b > a ? b : a;
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
 }
 
 // 1 / sd(c), sd clamping |c| <= 1e-12 to +1e-12 (sign lost, as the JAX

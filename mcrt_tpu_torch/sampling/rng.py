@@ -4,9 +4,13 @@ A ``SampleStream`` carries (seed, frame, next dimension, pixel ids) and every
 draw advances the dimension, so one interface backs both samplers:
 
 - SOBOL: scrambled Sobol', bit-exact with the JAX package.
-- RANDOM: uniforms from a ``torch.Generator`` seeded from (seed, frame,
-  dim).  It cannot reproduce threefry's bits, so it matches the JAX
-  package in distribution only.
+- RANDOM: ``jax.random.uniform`` under the partitionable threefry, bit-exact
+  with the JAX package.  The key, ``fold_in(fold_in(PRNGKey(seed), frame),
+  dim)``, is computed on the host in Python integers (the stream's seed,
+  frame and dimension are Python ints), so a draw adds no device constant
+  and no host sync; the counters and the 20 threefry rounds run on the
+  pixels' device in int64 with explicit 32-bit masks, as ``sobol.py`` does
+  its uint32 arithmetic.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import SamplerConfig, SamplerType
-from .sobol import sobol_matrices, sobol_sample_scrambled
+from .sobol import M32, sobol_matrices, sobol_sample_scrambled
 
 
 @dataclass(frozen=True)
@@ -50,24 +54,46 @@ def make_stream(cfg: SamplerConfig, frame: int, pixel_ids: torch.Tensor,
     )
 
 
-def _generator_seed(seed: int, frame: int, dim: int) -> int:
-    """Mix (seed, frame, dim) into one 63-bit generator seed (splitmix64)."""
-    x = (seed * 0x9E3779B97F4A7C15 + frame * 0xBF58476D1CE4E5B9
-         + dim * 0x94D049BB133111EB + 0x2545F4914F6CDD1D) & ((1 << 64) - 1)
-    x ^= x >> 30
-    x = (x * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
-    x ^= x >> 27
-    x = (x * 0x94D049BB133111EB) & ((1 << 64) - 1)
-    x ^= x >> 31
-    return x & ((1 << 63) - 1)
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(key: tuple[int, int], x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under the
+    key ``(k0, k1)``, as ``jax.random``'s threefry.  The words are Python
+    ints or int64 tensors holding uint32 values; the key is Python ints."""
+    ks = (key[0], key[1], key[0] ^ key[1] ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = (((x1 << r) & M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & M32  # one add of a host int
+    return x0, x1
+
+
+def random_key(seed: int, frame: int, dim: int) -> tuple[int, int]:
+    """``fold_in(fold_in(PRNGKey(seed), frame), dim)`` on the host:
+    ``PRNGKey(s)`` is (0, s) and ``fold_in(k, x)`` is ``threefry2x32(k,
+    (0, x))``, every word a uint32."""
+    key = (0, seed & M32)
+    for data in (frame, dim):
+        key = _threefry2x32(key, 0, data & M32)
+    return key
 
 
 def _random_bits(stream: SampleStream, n_dims: int) -> torch.Tensor:
-    dev = stream.pixel.device
-    g = torch.Generator(device=dev)
-    g.manual_seed(_generator_seed(stream.seed, stream.index, stream.dim))
-    return torch.rand((stream.pixel.shape[0], n_dims), generator=g,
-                      dtype=torch.float32, device=dev)
+    """(N, n_dims) uniforms in [0, 1), equal to ``jax.random.uniform`` of
+    the stream's key: threefry of each element's row-major counter (high,
+    low word), the xor of the two output words, its top 23 bits as the
+    mantissa of a float in [1, 2), minus 1."""
+    key = random_key(stream.seed, stream.index, stream.dim)
+    n = stream.pixel.shape[0]
+    i = torch.arange(n * n_dims, dtype=torch.int64, device=stream.pixel.device)
+    y0, y1 = _threefry2x32(key, i >> 32, i & M32)
+    mant = ((y0 ^ y1) >> 9) | 0x3F800000
+    return (mant.to(torch.int32).view(torch.float32) - 1.0).reshape(n, n_dims)
 
 
 def _sobol_bits(stream: SampleStream, n_dims: int) -> torch.Tensor:

@@ -1,0 +1,197 @@
+"""The intersector kernels of several source trees, timed on the same
+inputs in one process on one GPU.
+
+    python -m mcrt_tpu_torch.tools.tree_ab [NAME=DIR ...] [--rounds 2] [--reps 5]
+
+Each DIR is the root of a copy of this repository; only its
+``mcrt_tpu_torch/csrc`` is read, and it must keep this tree's C entry
+points.  ``this`` (this tree) is always among the trees, first.  Every
+tree's sources are built with this tree's flags into a library of their
+own, and each tree's kernels run through this tree's wrappers (the
+wrappers' ``kernels.LIBRARY`` is swapped for the tree's).  The inputs are
+made once, by this tree's Python code:
+
+- ``sphere_field`` (245,764 triangles): the 512x512 primary and bounce
+  wavefronts of ``chip_smoke.py``; K1, then K2 and K3 on its visit lists;
+- the inputs that K1 is handed during one ``sphere_field`` frame
+  (``Renderer``, 512x512, 8 bounces, Sobol, SAH blocks, after one warm-up
+  frame): 16 launches, summed;
+- ``sphere_field_instanced``: the same two wavefronts; K1 over the pair
+  boxes, then K6 and K7.
+
+A round times every case of every tree, each case as the median of
+``--reps`` calls, each call bracketed by ``torch.cuda.synchronize()`` and
+timed with CUDA events; the trees' order is reversed every other round
+(``this, a, b, b, a, this``), so drift in the card's clock does not favour
+a tree.  Prints each tree's time for each case in each round and the mean
+over rounds; K1's keys must equal this tree's (``torch.equal``: K1 is
+exact), and the walks' outputs are compared with this tree's and their
+differing rays printed, and each launch of a case of several (a frame's
+K1 launches, with each one's live rays, live tiles and entered (tile,
+chunk) pairs).  The card's name and power limit are printed first.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import sys
+
+import torch
+
+def _time(fn, reps):
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _inputs(device):
+    """The cases: name -> (kernel id, list of argument tuples)."""
+    from ..accel import blocked, kernels
+    from ..accel import two_level as tl
+    from ..config import BuilderType, BVHConfig, IntegratorConfig, RenderConfig, SamplerConfig
+    from ..config import SamplerType
+    from ..renderer import Renderer
+    from ..scene.builders import sphere_field, sphere_field_instanced
+    from .wavefronts import HEIGHT, WIDTH, cull_inputs_of_a_frame, wavefronts
+
+    tile, group = blocked.TILE, blocked.GROUP
+    cases = {}
+    scene, camera = sphere_field(device=device)
+    accel = blocked.build_blocked(scene.geometry)
+    waves = wavefronts(camera, lambda r: blocked.intersect_blocked(scene.geometry, accel, r),
+                       device)
+    for wf, rays in waves.items():
+        packed, _ = blocked._sorted_table(rays, accel, True)
+        k1 = (packed, accel.chunk_aabb, accel.aabb, tile)
+        counts, lists, tn = blocked.lists_from_keys(kernels.cull(*k1))
+        cases[f"K1 {wf}"] = ("K1", [k1])
+        cases[f"K2 {wf}"] = ("K2", [(counts, packed, lists, tn, accel.tri, accel.aabb, tile,
+                                     group)])
+        cases[f"K3 {wf}"] = ("K3", [(counts, packed, lists, accel.tri, accel.aabb, tile,
+                                     group)])
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=4,
+                       sampler=SamplerConfig(type=SamplerType.SOBOL),
+                       bvh=BVHConfig(builder=BuilderType.SAH),
+                       integrator=IntegratorConfig(max_depth=8))
+    renderer = Renderer(scene, camera, cfg, device=device)
+    renderer.step(1)  # warm-up
+    cases["K1 frame"] = ("K1", cull_inputs_of_a_frame(renderer))
+    del renderer
+
+    scene, camera = sphere_field_instanced(device=device)
+    two = tl.build_two_level_scene(scene.geometry, scene.shapes.to_world, scene.instances)
+    args = (two.blas.tri, two.pair_code, two.tw_rows)
+    waves = wavefronts(camera, lambda r: tl.intersect_two_level(scene.geometry, two, r),
+                       device)
+    for wf, rays in waves.items():
+        packed, _ = blocked._sorted_table(rays, two, True)
+        k1 = (packed, two.pair_chunk, two.pair_aabb, tile)
+        counts, lists, tn = blocked.lists_from_keys(kernels.cull(*k1))
+        cases[f"K1 pairs {wf}"] = ("K1", [k1])
+        cases[f"K6 {wf}"] = ("K6", [(counts, packed, lists, tn, *args, two.pair_aabb, tile,
+                                     group)])
+        cases[f"K7 {wf}"] = ("K7", [(counts, packed, lists, *args, two.pair_aabb, tile,
+                                     group)])
+    torch.cuda.synchronize()
+    return cases
+
+
+def _differing(k, out, ref) -> int:
+    """Outputs that differ from this tree's: keys (K1), rays (the walks)."""
+    if k == "K1":
+        return int((out != ref).sum())
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    bad = torch.zeros_like(out[0], dtype=torch.bool)
+    for a, b in zip(out, ref):
+        bad |= a != b
+    return int(bad.sum())
+
+
+def run(libs: dict, device, rounds: int, reps: int) -> dict:
+    """Every case under every library of ``libs`` (name -> KernelLibrary,
+    ``this`` first), ``rounds`` times; returns {tree: {case: [ms, ...]}}."""
+    from ..accel import kernels
+
+    own = kernels.LIBRARY
+    times = {name: {} for name in libs}
+    each = {name: {} for name in libs}  # per launch of a case of several, last round
+    with torch.no_grad():
+        cases = _inputs(device)
+        refs = {c: [kernels.WRAPPERS[k](*a) for a in inputs] for c, (k, inputs) in cases.items()}
+        order = list(libs)
+        try:
+            for rnd in range(rounds):
+                for name in (order if rnd % 2 == 0 else order[::-1]):
+                    kernels.LIBRARY = libs[name]
+                    for case, (k, inputs) in cases.items():
+                        fn = kernels.WRAPPERS[k]
+                        per = [_time(lambda: fn(*a), reps) for a in inputs]
+                        ms = sum(per)
+                        each[name][case] = per
+                        diff = sum(_differing(k, fn(*a), r) for a, r in zip(inputs, refs[case]))
+                        if k == "K1" and diff:
+                            raise AssertionError(f"{name}: {case} keys differ from this tree's "
+                                                 f"({diff})")
+                        times[name].setdefault(case, []).append(ms)
+                        print(f"[round {rnd}] {name} {case} ({len(inputs)} launches): "
+                              f"{ms:.4f} ms, differing from this tree {diff}", flush=True)
+        finally:
+            kernels.LIBRARY = own
+    print("mean over rounds (ms):", flush=True)
+    for case in cases:
+        print(f"  {case:18s} " + "  ".join(
+            f"{name} {statistics.fmean(times[name][case]):.4f}" for name in libs), flush=True)
+    for case, (k, inputs) in cases.items():
+        if len(inputs) < 2:
+            continue
+        print(f"{case}, each launch (ms, last round):", flush=True)
+        for i, (a, ref) in enumerate(zip(inputs, refs[case])):
+            stats = ""
+            if k == "K1":
+                tmn, tmx = a[0][6], a[0][7]
+                live = ~(tmx < tmn)
+                tiles = int(live.reshape(-1, a[3]).any(dim=1).sum())
+                entered = int((ref < 0.5 * 3.0e38).reshape(ref.shape[0], -1, 128).any(dim=2).sum())
+                stats = (f" ({int(live.sum())} live rays, {tiles} live tiles, {entered} "
+                         f"entered (tile, chunk) pairs)")
+            print(f"  {i:2d}: " + "  ".join(f"{name} {each[name][case][i]:.4f}" for name in libs)
+                  + stats, flush=True)
+    return times
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("trees", nargs="*", metavar="NAME=DIR")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tree_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    from ..accel import kernels
+    from .card import card_line
+
+    print(card_line(), flush=True)
+    libs = {"this": kernels.LIBRARY}
+    for spec in args.trees:
+        name, _, root = spec.partition("=")
+        libs[name] = kernels.KernelLibrary(os.path.join(root, "mcrt_tpu_torch", "csrc"))
+    for name, lib in libs.items():
+        lib.get()
+        print(f"[build] {name}: {lib.path}", flush=True)
+    run(libs, torch.device("cuda", 0), args.rounds, args.reps)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -331,3 +331,50 @@ def test_walk_work_is_at_most_the_tile_walk(case, closest):
         assert 0 < least * tb.BLOCK <= warp * 32 * tb.BLOCK <= tests
         found.append(least)
     assert found[0] == found[1] or not closest
+
+
+def test_cull_tests_equal_a_brute_loop(soup):
+    """K1's count of slab tests on unsorted rays with two all-dead tiles
+    (and dead rays in the others) equals a loop over tiles, chunks, groups
+    of 32 blocks and rays: a dead tile tests nothing; a live one tests
+    every real chunk box with all its rays; in an entered chunk, the union
+    box of every group that holds a real block; and each ray entering a
+    group's union tests the group's real blocks."""
+    _, jscene, _, _, tacc = soup
+    _, tr = both_rays(random_ray_arrays(jscene, 1000, seed=41))
+    packed = tb._pack_table(tb._ray_table(tr))  # 1024 columns, 8 tiles, the last padded
+    tile = tb.TILE
+    for dead in (1, 4):
+        packed[7, dead * tile:(dead + 1) * tile] = -tb.BIG
+    chunk, aabb = tacc.chunk_aabb, tacc.aabb
+    boxes = aabb.numpy()
+    assert chunk.shape[0] > 1
+    total = skipped_groups = 0
+    for t in range(packed.shape[1] // tile):
+        rays = tb._ray_rows(packed[:, t * tile:(t + 1) * tile])
+        ox, oy, oz, _, _, _, ix, iy, iz, tmn, tmx = rays
+        if bool((tmx < tmn).all()):
+            assert t in (1, 4)
+            continue
+        for c in range(chunk.shape[0]):
+            box = chunk[c]
+            if bool(torch.isnan(box[0])):
+                continue
+            total += tile
+            tn, tf = tb._slab(box[0:3], box[3:6], (ox, oy, oz), (ix, iy, iz), tmn, tmx)
+            if not bool((tn <= tf).any()):
+                continue
+            for g in range(4 * c, 4 * c + 4):
+                group = boxes[32 * g:32 * (g + 1)]
+                real = ~np.isnan(group[:, 0])
+                if not real.any():
+                    continue
+                total += tile
+                union = torch.from_numpy(np.concatenate([group[real, 0:3].min(0),
+                                                         group[real, 3:6].max(0)]))
+                un, uf = tb._slab(union[0:3], union[3:6], (ox, oy, oz), (ix, iy, iz), tmn, tmx)
+                inside = int((un <= uf).sum())
+                skipped_groups += inside < tile
+                total += inside * int(real.sum())
+    assert total > 0 and skipped_groups > 0
+    assert tb.cull_tests(packed, chunk, aabb, tile) == total

@@ -10,7 +10,7 @@ no JAX installed (the repository's ``conftest.py`` imports JAX, hence
 Tests marked ``cuda`` skip themselves where ``torch.cuda.is_available()`` is
 false.  Tolerances: cull keys and the dense any-hit flags are equal
 (those kernels use the plain versions' formulas without fused
-multiply-add); the dense closest-hit flags and slots are equal and
+multiply-add), and so are RANDOM draws on the card and the CPU; the dense closest-hit flags and slots are equal and
 distances agree to rtol 1e-5.  The list walks K2/K3 and K6/K7 prefilter
 with a fused test and skip, per warp, list entries none of its rays
 enters, so a ray may differ (a flag, a slot, an instance, or t beyond rtol
@@ -33,7 +33,8 @@ from mcrt_tpu_torch.accel import blocked as tb
 from mcrt_tpu_torch.accel import kernels
 from mcrt_tpu_torch.accel import two_level as ttl
 from mcrt_tpu_torch.core.types import Rays
-from mcrt_tpu_torch.scene.builders import cornell_box, glass_gallery, instanced_boxes
+from mcrt_tpu_torch.scene.builders import (cornell_box, glass_gallery, instanced_boxes,
+                                           sphere_field)
 from mcrt_tpu_torch.tools import vpu_bench
 
 # The tier-1 run spreads test files over several worker processes on a few
@@ -159,6 +160,55 @@ def test_nan_poisoned_boxes_are_never_entered_on_the_card(gallery_cuda):
     assert (keys[:, acc.num_blocks:] == tb.BIG).all()  # padding blocks
     nan_chunks = torch.full_like(acc.chunk_aabb, float("nan"))
     assert (kernels.cull(packed, nan_chunks, acc.aabb, tb.TILE) == tb.BIG).all()
+
+
+@pytest.fixture(scope="module")
+def field_cuda(cuda_device):
+    """``sphere_field`` at subdiv 4: 752 blocks, 6 cull chunks."""
+    scene, _ = sphere_field(subdiv=4, device=cuda_device)
+    return scene, tb.build_blocked(scene.geometry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [32, 128, 1024])
+def test_cull_keys_equal_plain_version_over_several_chunks(field_cuda, tile):
+    """K1 on a 6-chunk table at the narrowest and widest tiles: keys equal
+    to ``cull_plain``.  Coherence-sorted rays with segments of at most 1
+    (dead rays last); then tile 1 is made all dead between live tiles,
+    and tile 2 holds one live ray with a NaN origin, which enters
+    nothing, as in the plain version.  Some tile enters some chunks and
+    skips others."""
+    _, acc = field_cuda
+    packed, _ = tb._sorted_table(_rays(4096, seed=tile, device=acc.tri.device), acc, True)
+    packed[7].clamp_(max=1.0)
+    packed[7, tile:3 * tile] = -tb.BIG
+    packed[0, 2 * tile] = float("nan")
+    packed[7, 2 * tile] = 1e30
+    before = kernels.launch_counts()["K1"]
+    keys = kernels.cull(packed, acc.chunk_aabb, acc.aabb, tile)
+    plain = tb.cull_plain(packed, acc.chunk_aabb, acc.aabb, tile)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["K1"] == before + 1
+    assert torch.equal(keys, plain)
+    assert (keys[1:3] == tb.BIG).all()
+    n_chunks = acc.chunk_aabb.shape[0]
+    entered = (keys < 0.5 * tb.BIG).reshape(keys.shape[0], n_chunks, 128).any(dim=2)
+    assert n_chunks == 6 and bool(entered[0].any())
+    assert bool((entered.any(dim=1) & ~entered.all(dim=1)).any())
+
+
+@pytest.mark.cuda
+def test_random_draw_on_the_card_equals_the_cpu_draw(cuda_device):
+    """One RANDOM ``next_3d`` draw (threefry in int64 on the pixels'
+    device) is bit-equal on the card and on the CPU."""
+    from mcrt_tpu_torch.config import SamplerConfig
+    from mcrt_tpu_torch.sampling import rng
+
+    pixels = torch.arange(70_001, dtype=torch.int32)
+    draws = [rng.next_3d(rng.make_stream(SamplerConfig(seed=5), 70_000, pixels.to(d))
+                         .advance(65_540))[0].cpu() for d in (cuda_device, "cpu")]
+    assert torch.equal(draws[0].view(torch.int32), draws[1].view(torch.int32))
+    assert draws[0].shape == (70_001, 3) and 0.0 <= float(draws[0].min())
 
 
 @pytest.mark.cuda

@@ -1,10 +1,11 @@
 """The slice as a whole: the port's ``Renderer`` against the JAX package's.
 
 Both render the same scene (crossed over through ``interop``) at 32x32,
-Sobol, max_depth 3.  The JAX package uses ``AccelType.BRUTE`` (its CPU
+max_depth 3, under the Sobol sampler and, on ``cornell_box``, under the
+default RANDOM sampler.  The JAX package uses ``AccelType.BRUTE`` (its CPU
 ``AUTO`` choice at these sizes); the port runs its blocked intersector with
-the kernels' plain versions.  Sobol streams, the jitter and the pixel order
-are bit-equal, so every path makes the same decisions unless a float32
+the kernels' plain versions.  Sobol and RANDOM streams, the jitter and the
+pixel order are bit-equal, so every path makes the same decisions unless a float32
 last-bit difference flips one.  Tolerances:
 
 - after 1 spp, at least 99% of pixels agree to rtol 1e-3 / atol 1e-4 (a
@@ -51,15 +52,16 @@ def _camera(jcam):
         {jax.tree_util.keystr(p).lstrip("."): np.asarray(v) for p, v in leaves}, device="cpu")
 
 
-def _render_both(name, size=SIZE, spp=SPP, **integrator):
-    """(port images, jax images) after 1 spp and after ``spp``."""
+def _render_both(name, size=SIZE, spp=SPP, sampler="SOBOL", **integrator):
+    """(port images, jax images) after 1 spp and after ``spp``, under the
+    sampler type named ``sampler``."""
     jscene, jcam = getattr(jb, name)()
     jcfg = mcrt_tpu.RenderConfig(
         width=size, height=size, spp=1, accel=JAccelType.BRUTE,
-        sampler=JSamplerConfig(type=JSamplerType.SOBOL),
+        sampler=JSamplerConfig(type=JSamplerType[sampler]),
         integrator=JIntegratorConfig(max_depth=DEPTH, **integrator))
     tcfg = RenderConfig(width=size, height=size, spp=1,
-                        sampler=SamplerConfig(type=SamplerType.SOBOL),
+                        sampler=SamplerConfig(type=SamplerType[sampler]),
                         integrator=IntegratorConfig(max_depth=DEPTH, **integrator))
     jr = mcrt_tpu.Renderer(jscene, jcam, jcfg)
     tr = Renderer(port_scene(jscene), _camera(jcam), tcfg, device="cpu")
@@ -94,6 +96,18 @@ def test_sixteen_spp_mean_radiance_within_one_percent(renders):
     print(f"{name}: {SPP} spp mean {t16.mean():.6f} (jax {j16.mean():.6f}), "
           f"per-pixel mismatch share {1.0 - _agreement(t16, j16):.5f}")
     assert abs(t16.mean() - j16.mean()) <= 0.01 * j16.mean()
+
+
+def test_random_sampler_agrees_per_pixel():
+    """The default sampler, RANDOM, is bit-equal too: a 1-spp
+    ``cornell_box`` agrees per pixel, and so does the second sample."""
+    assert SamplerConfig().type == SamplerType.RANDOM
+    ((t1, t2), (j1, j2)), = [_render_both("cornell_box", spp=2, sampler="RANDOM")]
+    share = _agreement(t1, j1)
+    print(f"cornell_box RANDOM: 1 spp per-pixel mismatch share {1.0 - share:.5f}, "
+          f"2 spp {1.0 - _agreement(t2, j2):.5f}")
+    assert share >= MIN_AGREE and _agreement(t2, j2) >= MIN_AGREE
+    assert np.isfinite(t1).all() and t1.mean() > 0.0
 
 
 def test_mis_and_russian_roulette_agree():

@@ -1,9 +1,11 @@
 """Sample streams of the PyTorch port against the JAX package.
 
-SOBOL is held bit-equal: the same direction numbers, XOR fold and per-pixel
-digit scramble, with the port's uint32 arithmetic done in int64.  RANDOM
-draws from ``torch.Generator``s and cannot reproduce threefry's bits, so it
-is compared by distribution only: mean and variance of a uniform on [0, 1).
+Both samplers are held bit-equal.  SOBOL: the same direction numbers, XOR
+fold and per-pixel digit scramble.  RANDOM: the same threefry key folded
+over (seed, frame, dimension), counters and float conversion as
+``jax.random.uniform``.  The port does its uint32 arithmetic in int64.
+RANDOM is also checked by distribution: mean and variance of a uniform on
+[0, 1).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -70,6 +72,31 @@ def test_sobol_stream_draws_bit_equal(frame):
             np.testing.assert_array_equal(tu.numpy().view(np.int32),
                                           np.asarray(ju).view(np.int32))
     assert ts.dim == int(js.dim) == 12
+
+
+@pytest.mark.parametrize("seed, frame, dim, n, draw", [
+    (0, 0, 0, 5, "next_2d"),
+    (9, 4, 7, 1000, "next_3d"),
+    (12345, 70000, 3, 77, "next_1d"),
+    (3, 1, 65541, 300, "next_3d"),
+    (2**31 - 1, 2**31 - 1, 2**31 - 10, 64, "next_2d"),
+])
+def test_random_streams_bit_equal_to_jax(seed, frame, dim, n, draw):
+    """RANDOM draws at a given (seed, frame, dimension), frames and
+    dimensions past 2^16 among them, then the next draw of each kind."""
+    pixels = _pixels()[:n] if n <= N_PIXELS else np.arange(n, dtype=np.int32)
+    js = jrng.make_stream(JSamplerConfig(seed=seed), jnp.asarray(frame, jnp.int32),
+                          jnp.asarray(pixels))
+    js = js.replace(dim=jnp.asarray(dim, jnp.int32))
+    ts = trng.make_stream(SamplerConfig(seed=seed), frame, torch.from_numpy(pixels))
+    ts = ts.advance(dim)
+    assert ts.kind == js.kind == 0
+    for name in (draw, "next_1d", "next_2d", "next_3d"):
+        ju, js = getattr(jrng, name)(js)
+        tu, ts = getattr(trng, name)(ts)
+        assert tu.shape == ju.shape and tu.dtype == torch.float32
+        np.testing.assert_array_equal(tu.numpy().view(np.int32), np.asarray(ju).view(np.int32))
+    assert ts.dim == int(js.dim)
 
 
 def test_random_stream_distribution():
