@@ -25,14 +25,19 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    and read just after, and must launch K8 and K9.
 2. Kernels, each against its plain PyTorch version on the card, on a
    512x512 wavefront of primary rays and one of random bounce rays, timed
-   both ways, with the kernel's bound (below) printed beside its time:
+   both ways, with the kernel's bound (below) printed beside its time (a
+   kernel's time is the card's alone: each timed call is queued behind a
+   spin on the card, so the host's time in the wrapper before the launch
+   falls outside the window; ``tools/card.py: device_timed``):
    K1 cull, K2 closest hit and K3 any hit on ``sphere_field`` (~245k
-   triangles); K4 and K5 (dense) on ``textured_hall``; K6 and K7
-   (two-level) behind K1 over pair boxes on ``sphere_field_instanced``.
-   K1 keys must be equal; K4 closest-hit flags and slots equal and t
-   within rtol 1e-5 where both hit; K5 any-hit flags equal: those kernels
-   compute the plain versions' formulas without fused multiply-add, in
-   the same order.  The list walks K2/K3 and K6/K7 are held to a stated
+   triangles); K4 and K5 (dense) on ``textured_hall``, the wavefronts
+   packed as the main path packs them (unsorted: the queries sort only
+   from ``SORT_MIN_BLOCKS`` = 8 blocks on); K6 and K7 (two-level) behind
+   K1 over pair boxes on ``sphere_field_instanced``.  K1 keys must be
+   equal; K4 closest-hit flags, slots and t equal; K5 any-hit flags equal:
+   those kernels compute the plain versions' formulas without fused
+   multiply-add, in the same order, and K4/K5 skip only padding slots and
+   dead rays, which never hit.  The list walks K2/K3 and K6/K7 are held to a stated
    tolerance instead: their prefilter fuses its multiply-adds and defers
    the division, which can drop a grazing edge or a tie between the two
    triangles of a shared edge beyond its slack, and a warp skips list
@@ -63,7 +68,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``sphere_field`` frames, one more frame keeps the inputs K1 is handed
    (16 launches: 8 bounces, closest hit and shadow); each launch's keys
    must equal ``cull_plain``'s, and K1's time on each and its bound are
-   summed and printed ("K1 a frame").  Each image must
+   summed and printed ("K1 a frame").  After the ``textured_hall`` frames,
+   one more frame keeps the inputs K4 and K5 are handed (8 launches each);
+   each launch's outputs must equal the plain version's, and their times
+   and bounds are summed and printed ("K4/K5 a frame").  Each image must
    be finite with a positive mean, a frame run under torch's CUDA sync
    debug mode must make no synchronizing call, and the SAH builder must
    have run.  The instanced image's mean must agree with the baked
@@ -81,7 +89,8 @@ and its bytes (each input read once,
 each output written once) over 3.35 TB/s.  Operations: 25 a slab test,
 54 a Moller-Trumbore test, 48 a slot staged into world space (K6/K7); the
 tests are counted from the plain versions' loops (``cull_tests``,
-``walk_tests``, ``dense_tests``); K8 counts 5 a round of its chain and K9
+``walk_tests``, ``dense_tests``: K4/K5 test only the slots that can hit,
+``dense_kept``); K8 counts 5 a round of its chain and K9
 2 a multiply-add, as ``tools/vpu_bench.py`` counts them.  The list walks
 K2/K3 and K6/K7 have two counts, both printed, and the row takes the
 smaller bound: the tile walk (``walk_tests``: every live ray of a tile
@@ -157,6 +166,14 @@ def timed(fn, reps: int):
     return statistics.median(times), times, out
 
 
+def kernel_timed(fn, reps: int):
+    """As ``timed``, for a kernel: its time on the card alone, the host's
+    time in the wrapper excluded (``tools/card.py: device_timed``)."""
+    from mcrt_tpu_torch.tools.card import device_timed
+
+    return device_timed(fn, reps)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -199,14 +216,11 @@ class KernelResults:
 
 def check_closest(k, wf, kern, plain):
     """Closest-hit outputs (t, slot) of a kernel and its plain version:
-    flags and slots equal, t within rtol 1e-5."""
-    import torch
-
+    slots and t equal (misses included: t = BIG, slot = -1)."""
     (t_k, s_k), (t_p, s_p) = kern, plain
     hk, hp = s_k >= 0, s_p >= 0
     both = hk & hp
-    t_ok = torch.isclose(t_k, t_p, rtol=1e-5, atol=0.0) | ~both
-    bad = (hk != hp) | ~t_ok | (s_k != s_p)
+    bad = (s_k != s_p) | (t_k != t_p)
     share = bad.float().mean().item()
     err = (t_k[both] - t_p[both]).abs().max().item() if both.any() else 0.0
     log(f"[kernels:{wf}] {k}: {int(hk.sum())} hits, differing share {share:.2e}, "
@@ -288,7 +302,7 @@ def cull_and_check(res, wf, packed, chunk, boxes, k_id="K1"):
     from mcrt_tpu_torch.accel import blocked, kernels
 
     tile = blocked.TILE
-    ms, _, keys = timed(lambda: kernels.cull(packed, chunk, boxes, tile), KERNEL_REPS)
+    ms, _, keys = kernel_timed(lambda: kernels.cull(packed, chunk, boxes, tile), KERNEL_REPS)
     pms, _, keys_p = timed(lambda: blocked.cull_plain(packed, chunk, boxes, tile), PLAIN_REPS)
     if not torch.equal(keys, keys_p):
         bad = (keys != keys_p).float().mean().item()
@@ -335,8 +349,8 @@ def vpu_kernels(res, device):
     # the float32 chain is recorded last: the JSON row carries the last record
     for dtype, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FLOPS)):
         label = str(dtype).split(".")[-1]
-        ms, _, out = timed(lambda: vb.run_chain(x, dtype), KERNEL_REPS)
-        half, _, _ = timed(lambda: vb.run_chain(x, dtype, vb.ITERS // 2), KERNEL_REPS)
+        ms, _, out = kernel_timed(lambda: vb.run_chain(x, dtype), KERNEL_REPS)
+        half, _, _ = kernel_timed(lambda: vb.run_chain(x, dtype, vb.ITERS // 2), KERNEL_REPS)
         iters_ratio("K8", label, ms, half)
         vb.chain_plain(x, dtype)  # warm-up
         pms, _, plain = timed(repeated(lambda: vb.chain_plain(x, dtype)), 1)
@@ -353,8 +367,8 @@ def vpu_kernels(res, device):
         log(f"[vpu] K8 {label}: {ops / (ms / 1e3) / 1e12:.3f} Tops/s sustained")
     for k in vb.KS:
         a, b = vb.matmul_inputs(device, k)
-        ms, _, out = timed(lambda: vb.run_matmul(a, b), KERNEL_REPS)
-        half, _, _ = timed(lambda: vb.run_matmul(a, b, vb.ITERS // 2), KERNEL_REPS)
+        ms, _, out = kernel_timed(lambda: vb.run_matmul(a, b), KERNEL_REPS)
+        half, _, _ = kernel_timed(lambda: vb.run_matmul(a, b, vb.ITERS // 2), KERNEL_REPS)
         iters_ratio("K9", f"k={k}", ms, half)
         vb.matmul_plain(a, b)  # warm-up
         pms, _, plain = timed(repeated(lambda: vb.matmul_plain(a, b)), 1)
@@ -410,8 +424,8 @@ def visit_list_kernels(res, device):
         packed, _ = blocked._sorted_table(rays, accel, True)
         live = packed[7] > packed[6]
         counts, lists, tn = cull_and_check(res, wf, packed, accel.chunk_aabb, boxes)
-        ms, _, out_k = timed(lambda: kernels.closest(counts, packed, lists, tn, tri, boxes,
-                                                     tile, group), KERNEL_REPS)
+        ms, _, out_k = kernel_timed(lambda: kernels.closest(counts, packed, lists, tn, tri,
+                                                            boxes, tile, group), KERNEL_REPS)
         pms, _, out_p = timed(lambda: blocked.closest_plain(counts, packed, lists, tn, tri,
                                                             tile, group), PLAIN_REPS)
         err = check_walk_closest("K2", wf, out_k, out_p, live)
@@ -421,8 +435,8 @@ def visit_list_kernels(res, device):
         log_walk_work("K2", wf, tests, least, warp, "block")
         res.record("K2", wf, ms, pms, err, tests * OPS_MT,
                    nbytes(counts, packed, lists, tn, tri, boxes, *out_k), floor_ops=least * visit)
-        ms, _, b_k = timed(lambda: kernels.occluded(counts, packed, lists, tri, boxes, tile,
-                                                    group), KERNEL_REPS)
+        ms, _, b_k = kernel_timed(lambda: kernels.occluded(counts, packed, lists, tri, boxes,
+                                                           tile, group), KERNEL_REPS)
         pms, _, b_p = timed(lambda: blocked.occluded_plain(counts, packed, lists, tri,
                                                            tile, group), PLAIN_REPS)
         err = check_walk_any("K3", wf, b_k, b_p, live)
@@ -437,7 +451,7 @@ def visit_list_kernels(res, device):
 
 def dense_kernels(res, device):
     """K4/K5 on the dense path's scene."""
-    from mcrt_tpu_torch.accel import blocked, kernels
+    from mcrt_tpu_torch.accel import SORT_MIN_BLOCKS, blocked, kernels
     from mcrt_tpu_torch.accel.blocked import build_blocked, intersect_blocked
     from mcrt_tpu_torch.scene.builders import textured_hall
     from mcrt_tpu_torch.tools.wavefronts import wavefronts
@@ -450,14 +464,17 @@ def dense_kernels(res, device):
         raise AssertionError("textured_hall does not take the dense path")
     tri = accel.tri
     waves = wavefronts(camera, lambda r: intersect_blocked(scene.geometry, accel, r), device)
+    log(f"[scene] textured_hall: K4/K5 keep {int(blocked.dense_kept(tri).sum())} of "
+        f"{tri.shape[1]} slots")
     for wf, rays in waves.items():
-        packed, _ = blocked._sorted_table(rays, accel, False)
-        ms, _, out_k = timed(lambda: kernels.dense_closest(packed, tri), KERNEL_REPS)
+        # packed as the main path packs them: unsorted below SORT_MIN_BLOCKS
+        packed, _ = blocked._sorted_table(rays, accel, accel.num_blocks >= SORT_MIN_BLOCKS)
+        ms, _, out_k = kernel_timed(lambda: kernels.dense_closest(packed, tri), KERNEL_REPS)
         pms, _, out_p = timed(lambda: blocked.dense_closest_plain(packed, tri), PLAIN_REPS)
         err = check_closest("K4", wf, out_k, out_p)
         res.record("K4", wf, ms, pms, err, blocked.dense_tests(packed, tri, True) * OPS_MT,
                    nbytes(packed, tri, *out_k))
-        ms, _, b_k = timed(lambda: kernels.dense_any(packed, tri), KERNEL_REPS)
+        ms, _, b_k = kernel_timed(lambda: kernels.dense_any(packed, tri), KERNEL_REPS)
         pms, _, b_p = timed(lambda: blocked.dense_any_plain(packed, tri), PLAIN_REPS)
         err = check_any("K5", wf, b_k, b_p)
         res.record("K5", wf, ms, pms, err, blocked.dense_tests(packed, tri, False) * OPS_MT,
@@ -489,8 +506,8 @@ def two_level_kernels(res, device):
         packed, _ = blocked._sorted_table(rays, accel, True)
         live = packed[7] > packed[6]
         counts, lists, tn = cull_and_check(res, wf, packed, accel.pair_chunk, boxes, k_id=None)
-        ms, _, out_k = timed(lambda: kernels.closest2(counts, packed, lists, tn, *args, boxes,
-                                                      tile, group), KERNEL_REPS)
+        ms, _, out_k = kernel_timed(lambda: kernels.closest2(counts, packed, lists, tn, *args,
+                                                             boxes, tile, group), KERNEL_REPS)
         pms, _, out_p = timed(lambda: tl.closest2_plain(counts, packed, lists, tn, *args, tile,
                                                         group), PLAIN_REPS)
         err = check_walk_closest("K6", wf, out_k, out_p, live)
@@ -501,8 +518,8 @@ def two_level_kernels(res, device):
         res.record("K6", wf, ms, pms, err, tests * OPS_MT + staged * OPS_STAGE,
                    nbytes(counts, packed, lists, tn, *args, boxes, *out_k),
                    floor_ops=least * visit + staged * OPS_STAGE)
-        ms, _, b_k = timed(lambda: kernels.occluded2(counts, packed, lists, *args, boxes, tile,
-                                                     group), KERNEL_REPS)
+        ms, _, b_k = kernel_timed(lambda: kernels.occluded2(counts, packed, lists, *args, boxes,
+                                                            tile, group), KERNEL_REPS)
         pms, _, b_p = timed(lambda: tl.occluded2_plain(counts, packed, lists, *args, tile,
                                                        group), PLAIN_REPS)
         err = check_walk_any("K7", wf, b_k, b_p, live)
@@ -574,12 +591,12 @@ def cull_frame_phase(renderer, label):
     import torch
 
     from mcrt_tpu_torch.accel import blocked, kernels
-    from mcrt_tpu_torch.tools.wavefronts import cull_inputs_of_a_frame
+    from mcrt_tpu_torch.tools.wavefronts import inputs_of_a_frame
 
-    inputs = cull_inputs_of_a_frame(renderer)
+    inputs = inputs_of_a_frame(renderer, ["K1"])["K1"]
     total_ms = total_bound = 0.0
     for packed, chunk, boxes, tile in inputs:
-        ms, _, keys = timed(lambda: kernels.cull(packed, chunk, boxes, tile), KERNEL_REPS)
+        ms, _, keys = kernel_timed(lambda: kernels.cull(packed, chunk, boxes, tile), KERNEL_REPS)
         if not torch.equal(keys, blocked.cull_plain(packed, chunk, boxes, tile)):
             raise AssertionError(f"{label}: K1 keys of a frame's launch differ from the "
                                  "plain version")
@@ -591,10 +608,45 @@ def cull_frame_phase(renderer, label):
         f"{len(inputs)} launches (keys equal to the plain version's on each)")
 
 
-def main_path_phase(label, scene, camera, device, expect, forbid, cull_frame=False):
+def dense_frame_phase(renderer, label):
+    """The inputs K4 and K5 are handed during one frame of ``renderer``:
+    each launch's outputs equal to the plain version's (as in the kernel
+    phase); the kernels' time on each (median of ``KERNEL_REPS``) and their
+    bound, summed over the frame's launches of both."""
+    from mcrt_tpu_torch.accel import blocked, kernels
+    from mcrt_tpu_torch.tools.wavefronts import inputs_of_a_frame
+
+    inputs = inputs_of_a_frame(renderer, ["K4", "K5"])
+    total_ms = total_bound = 0.0
+    for k, (kern, plain, closest) in {
+            "K4": (kernels.dense_closest, blocked.dense_closest_plain, True),
+            "K5": (kernels.dense_any, blocked.dense_any_plain, False)}.items():
+        for i, (packed, tri) in enumerate(inputs[k]):
+            ms, _, out = kernel_timed(lambda: kern(packed, tri), KERNEL_REPS)
+            ref = plain(packed, tri)
+            wf = f"{label} frame launch {i}"
+            if closest:
+                check_closest(k, wf, out, ref)
+                moved = nbytes(packed, tri, *out)
+            else:
+                check_any(k, wf, out, ref)
+                moved = nbytes(packed, tri, out)
+            b_ms, _ = bound(blocked.dense_tests(packed, tri, closest) * OPS_MT, moved)
+            log(f"[{label}] {k} frame launch {i}: {int((packed[7] > packed[6]).sum())} live "
+                f"rays, {ms:.4f} ms, bound {b_ms:.4f} ms")
+            total_ms += ms
+            total_bound += b_ms
+    n = len(inputs["K4"]) + len(inputs["K5"])
+    log(f"[{label}] K4/K5 a frame: {total_ms:.4f} ms, bound {total_bound:.4f} ms, {n} launches "
+        f"(K4 {len(inputs['K4'])}, K5 {len(inputs['K5'])}; each equal to the plain version)")
+    if not inputs["K4"] or not inputs["K5"]:
+        raise AssertionError(f"{label}: a frame launched no K4 or no K5")
+
+
+def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=None):
     """``Renderer`` on ``scene``: returns (launch counts, ms/spp, rays/s,
-    image mean); with ``cull_frame``, then ``cull_frame_phase`` on one more
-    frame."""
+    image mean); then ``frame_phase(renderer, label)``, if given, on one
+    more frame."""
     import torch
 
     from mcrt_tpu_torch import Renderer
@@ -665,8 +717,8 @@ def main_path_phase(label, scene, camera, device, expect, forbid, cull_frame=Fal
         f"image mean {mean:.5f}, launches {counts}, "
         f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
         f"card {card_line()}")
-    if cull_frame:
-        cull_frame_phase(renderer, label)
+    if frame_phase:
+        frame_phase(renderer, label)
     return counts, ms, rays_s, mean
 
 
@@ -705,9 +757,10 @@ def main() -> int:
         random_draw_phase(device)
         paths = {
             "main": main_path_phase("main", scene, camera, device, ("K1", "K2", "K3"), (),
-                                    cull_frame=True),
+                                    frame_phase=cull_frame_phase),
             "dense": main_path_phase("dense", *textured_hall(device=device), device,
-                                     ("K4", "K5"), ("K1", "K2", "K3")),
+                                     ("K4", "K5"), ("K1", "K2", "K3"),
+                                     frame_phase=dense_frame_phase),
             "instanced": main_path_phase("instanced", *sphere_field_instanced(device=device),
                                          device, ("K1", "K6", "K7"), ("K2", "K3", "K4", "K5")),
         }

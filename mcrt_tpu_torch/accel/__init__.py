@@ -26,6 +26,12 @@ from ..core.types import Hit, Rays
 from ..scene.scene import Instances, Scene
 
 
+# The blocked queries sort their rays for coherence only from this many
+# blocks on: the sort pays off only when culling can skip blocks, so the
+# dense path (K4/K5) is handed its rays in the renderer's order.
+SORT_MIN_BLOCKS = 8
+
+
 class Intersector(NamedTuple):
     """Bound query functions: (scene, rays) -> Hit / blocked mask."""
 
@@ -38,8 +44,7 @@ def blocked_intersector(acc) -> Intersector:
     """Bind blocked-accel query closures around an accel."""
     from .blocked import intersect_blocked, occluded_blocked
 
-    # the coherence sort pays off only when culling can skip blocks
-    sort = acc.num_blocks >= 8
+    sort = acc.num_blocks >= SORT_MIN_BLOCKS
     return Intersector(
         intersect=lambda s, r: intersect_blocked(s.geometry, acc, r, sort=sort),
         occluded=lambda s, r: occluded_blocked(s.geometry, acc, r, sort=sort),

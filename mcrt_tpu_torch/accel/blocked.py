@@ -636,7 +636,7 @@ def _dense_plain(rays_packed: torch.Tensor, tri: torch.Tensor, closest: bool):
         ox, oy, oz, dx, dy, dz, _, _, _, tmn, tmx = _ray_rows(
             rays_packed[:, s:s + step, None])  # each (R, 1)
         bt, bs, bb = best_t[s:s + step, None], best_slot[s:s + step, None], blocked[s:s + step]
-        for b in range(tri.shape[1] // BLOCK):
+        for b in range(-(-tri.shape[1] // BLOCK)):  # a ragged last block too
             tri9 = [tri[c, None, b * BLOCK:(b + 1) * BLOCK] for c in range(9)]  # (1, 128)
             if closest:
                 t, hit = _mt(tri9, (ox, oy, oz), (dx, dy, dz), tmn, tmx, bt)
@@ -665,22 +665,31 @@ def dense_any_plain(rays_packed: torch.Tensor, tri: torch.Tensor):
     return _dense_plain(rays_packed, tri, False)
 
 
+def dense_kept(tri: torch.Tensor) -> torch.Tensor:
+    """(NT,) bool: the slots K4/K5 stage, those whose six edge components
+    (rows 3-8, e1 and e2) are not all exactly zero.  A dropped slot can
+    never hit: with e1 = e2 = 0, det is 0 or NaN and fails |det| > 1e-9
+    (``_mt``), whatever the ray.  Padding slots are such slots."""
+    return (tri[3:9] != 0.0).any(dim=0)
+
+
 def dense_tests(rays_packed: torch.Tensor, tri: torch.Tensor, closest: bool) -> int:
     """Moller-Trumbore tests that K4 (``closest``) or K5 runs on these
-    inputs: every live ray tests every slot, except that K5 stops a ray at
-    its first blocking slot."""
+    inputs: every live ray tests every kept slot (``dense_kept``), except
+    that K5 stops a ray at its first blocking slot."""
     _, _, _, _, _, _, _, _, _, tmn, tmx = _ray_rows(rays_packed)
     live = tmx > tmn
-    nt = tri.shape[1]
-    if closest:
-        return int(live.sum()) * nt
+    kept = tri[:, dense_kept(tri)]
+    nk = kept.shape[1]
+    if closest or nk == 0:
+        return int(live.sum()) * nk
     total = 0
-    step = (1 << 22) // nt
+    step = (1 << 22) // nk
     for s in range(0, rays_packed.shape[1], step):
         ox, oy, oz, dx, dy, dz, _, _, _, tmn, tmx = _ray_rows(rays_packed[:, s:s + step, None])
-        _, hit = _mt([tri[c, None, :] for c in range(9)], (ox, oy, oz), (dx, dy, dz),
-                     tmn, tmx, BIG)  # (R, NT)
-        first = torch.where(hit.any(dim=1), hit.to(torch.int8).argmax(dim=1) + 1, nt)
+        _, hit = _mt([kept[c, None, :] for c in range(9)], (ox, oy, oz), (dx, dy, dz),
+                     tmn, tmx, BIG)  # (R, kept)
+        first = torch.where(hit.any(dim=1), hit.to(torch.int8).argmax(dim=1) + 1, nk)
         total += int(torch.where(live[s:s + step], first, 0).sum())
     return total
 

@@ -48,7 +48,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # versions within a stated tolerance instead (csrc/walk.cuh).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
-DENSE_MAX_SLOTS = 1024  # K4/K5 stage the whole table: 8 blocks of 128 slots
+DENSE_MAX_SLOTS = 1024  # K4/K5 stage a table's real slots: 8 blocks of 128 at most
 WALK_MAX_TILE = 256  # the list walks' launch bound (MCRT_WALK_MAX_TILE in csrc/walk.cuh)
 
 

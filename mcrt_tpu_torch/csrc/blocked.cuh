@@ -91,3 +91,12 @@ __device__ __forceinline__ bool mt_hit(float p0x, float p0y, float p0z,
     return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > tmn &&
            t < tmx && t < best_t;
 }
+
+// Above 48 KB a kernel takes dynamic shared memory only after opting in
+// (the walks at group > 5, K4/K5 near their 1,024-slot maximum).
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+}

@@ -239,12 +239,3 @@ __device__ __forceinline__ float warp_max(float v) {
         v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
     return v;
 }
-
-// Above 48 KB (group > 5) a kernel takes dynamic shared memory only after
-// opting in.
-template <typename Kernel>
-inline cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
-}

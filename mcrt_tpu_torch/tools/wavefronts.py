@@ -1,6 +1,6 @@
 """Kernel inputs at the main path's shapes, for ``chip_smoke.py`` and
 ``tools/tree_ab.py``: the 512x512 primary and bounce wavefronts, and the
-inputs that K1 is handed during one frame of a ``Renderer``."""
+inputs that a kernel is handed during one frame of a ``Renderer``."""
 from __future__ import annotations
 
 import torch
@@ -33,27 +33,35 @@ def wavefronts(camera, intersect, device, width: int = WIDTH, height: int = HEIG
     return {"primary": primary, "bounce": bounce}
 
 
-def cull_inputs_of_a_frame(renderer) -> list[tuple]:
-    """``renderer.step(1)`` with the queries' choice of K1 wrapped for that
-    frame: returns the (rays_packed, chunk_aabb, aabb, tile) of every K1
-    launch in it, the ray tables cloned (the frame frees them).  The
-    wrapper only keeps the inputs and calls ``kernels.cull``, which
-    launches and counts as always."""
-    from ..accel import blocked, kernels, two_level
+def inputs_of_a_frame(renderer, ids) -> dict[str, list[tuple]]:
+    """``renderer.step(1)`` with the wrappers of the kernels ``ids`` (keys
+    of ``kernels.WRAPPERS``) wrapped for that frame: returns, for each id,
+    the arguments of every launch in it, their tensors cloned (the frame
+    frees them).  The wrapper only keeps the arguments and calls the
+    kernel's own wrapper, which launches and counts as always; the queries
+    look their wrappers up in ``kernels`` at each call, so every call in
+    the frame is seen."""
+    from ..accel import kernels
 
-    kept, choose = [], blocked._kernel_or_plain
+    kept = {k: [] for k in ids}
+    own = {k: kernels.WRAPPERS[k] for k in ids}
 
-    def keep(rays_packed, chunk_aabb, aabb, tile):
-        kept.append((rays_packed.clone(), chunk_aabb, aabb, tile))
-        return kernels.cull(rays_packed, chunk_aabb, aabb, tile)
+    def keeping(k):
+        def keep(*args):
+            kept[k].append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                 for a in args))
+            return own[k](*args)
+        # a wrapper counts its launches on the name it has in ``kernels``:
+        # the keeper carries the count for the frame and hands it back
+        keep.launches = own[k].launches
+        return keep
 
-    def choose_keep(rays_packed, kernel, plain):
-        chosen = choose(rays_packed, kernel, plain)
-        return keep if chosen is kernels.cull else chosen
-
-    blocked._kernel_or_plain = two_level._kernel_or_plain = choose_keep
+    for k, fn in own.items():
+        setattr(kernels, fn.__name__, keeping(k))
     try:
         renderer.step(1)
     finally:
-        blocked._kernel_or_plain = two_level._kernel_or_plain = choose
+        for fn in own.values():
+            fn.launches = getattr(kernels, fn.__name__).launches
+            setattr(kernels, fn.__name__, fn)
     return kept

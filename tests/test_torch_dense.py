@@ -76,22 +76,77 @@ def test_dense_plain_equals_the_visit_list_walk(small):
 
 
 def test_dense_work_counts(small):
-    """``dense_tests``: K4 tests every slot for every live ray; K5 stops a
-    ray at its first blocking slot (checked slot by slot here)."""
+    """``dense_tests``: K4 tests every kept slot (``dense_kept``) for every
+    live ray; K5 stops a ray at its first blocking kept slot (checked kept
+    slot by kept slot here)."""
     _, jscene, _, _, tacc = small
     _, tr = both_rays(random_ray_arrays(jscene, 500, seed=4))
     packed, _ = tb._sorted_table(tr, tacc, False)
-    nt = tacc.tri.shape[1]
+    kept = tb.dense_kept(tacc.tri).nonzero().flatten().tolist()
+    nk = len(kept)
+    assert 0 < nk < tacc.tri.shape[1]
     live = packed[7] > packed[6]
-    assert tb.dense_tests(packed, tacc.tri, True) == int(live.sum()) * nt
+    assert tb.dense_tests(packed, tacc.tri, True) == int(live.sum()) * nk
     ox, oy, oz, dx, dy, dz, _, _, _, tmn, tmx = tb._ray_rows(packed)
-    first = torch.full_like(tmn, float(nt))
-    for j in reversed(range(nt)):
-        _, hit = tb._mt([tacc.tri[c, j] for c in range(9)], (ox, oy, oz), (dx, dy, dz),
+    first = torch.full_like(tmn, float(nk))
+    for i in reversed(range(nk)):
+        _, hit = tb._mt([tacc.tri[c, kept[i]] for c in range(9)], (ox, oy, oz), (dx, dy, dz),
                         tmn, tmx, tb.BIG)
-        first = torch.where(hit, float(j + 1), first)
+        first = torch.where(hit, float(i + 1), first)
     expected = int(torch.where(live, first, 0.0).sum())
-    assert tb.dense_tests(packed, tacc.tri, False) == expected < int(live.sum()) * nt
+    assert tb.dense_tests(packed, tacc.tri, False) == expected < int(live.sum()) * nk
+
+
+@pytest.fixture(scope="module",
+                params=[("cornell_box", 36), ("textured_hall", 44), ("glass_gallery", 687)])
+def table(request):
+    """(jax scene, the port's accel, the JAX table, the port's table, its
+    slot_prim, the number of slots K4/K5 keep) of a dense table:
+    ``cornell_box``'s and ``textured_hall``'s one block, and the first 1,024
+    slots (8 blocks, the largest dense table) of ``glass_gallery``'s 47
+    blocks."""
+    name, n_kept = request.param
+    jscene = getattr(jb, name)()[0]
+    jacc = jpb.build_blocked(jscene.geometry)
+    tacc = tb.build_blocked(port_scene(jscene).geometry)
+    n = min(tacc.tri.shape[1], tb.DENSE_BLOCKS * tb.BLOCK)
+    return (jscene, tacc, np.asarray(jacc.tri)[:, :n], tacc.tri[:, :n].contiguous(),
+            tacc.slot_prim[:n], n_kept)
+
+
+def test_dropped_slots_are_padding(table):
+    """Every slot K4/K5 drop (e1 = e2 = 0) is a padding slot of the
+    table, a column equal to the JAX package's."""
+    _, _, jtri, tri, slot_prim, n_kept = table
+    kept = tb.dense_kept(tri)
+    dropped = (~kept).nonzero().flatten()
+    assert int(kept.sum()) == n_kept and dropped.numel() > 0
+    assert bool((slot_prim[dropped] == -1).all())
+    assert bool((tri[3:9, dropped] == 0.0).all())
+    np.testing.assert_array_equal(tri[:, dropped].numpy(), jtri[:, dropped.numpy()])
+
+
+@pytest.mark.parametrize("closest", [True, False], ids=["closest", "any"])
+def test_plain_versions_agree_without_dropped_slots(table, closest):
+    """K4/K5's plain versions on the table with the dropped slots removed
+    (the slots K4/K5 stage), their slot indices mapped back, equal the
+    plain versions on the full table bit for bit."""
+    jscene, tacc, _, tri, _, _ = table
+    _, tr = both_rays(random_ray_arrays(jscene, 1500, seed=21))
+    packed, _ = tb._sorted_table(tr, tacc, True)
+    kept = tb.dense_kept(tri).nonzero().flatten()
+    small = tri[:, kept].contiguous()
+    if not closest:
+        b_full = tb.dense_any_plain(packed, tri)
+        assert torch.equal(tb.dense_any_plain(packed, small), b_full)
+        assert int(b_full.sum()) > 100
+        return
+    t_full, s_full = tb.dense_closest_plain(packed, tri)
+    t_kept, s_kept = tb.dense_closest_plain(packed, small)
+    mapped = torch.where(s_kept >= 0, kept.to(torch.int32)[s_kept.clamp_min(0).long()], -1)
+    assert torch.equal(t_kept, t_full)
+    assert torch.equal(mapped, s_full)
+    assert int((s_full >= 0).sum()) > 100
 
 
 def test_dense_wrappers_take_cuda_tensors_only(small):
