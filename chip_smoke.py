@@ -14,15 +14,25 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 1. K8/K9, the card micro-benchmark (``mcrt_tpu_torch/tools/vpu_bench.py``)
    at its own shapes: K8's float32 and bfloat16 chains on x (256, 1024)
    must equal ``chain_plain`` bit for bit (the same single roundings); K9
-   at k = 8 and 128 must lie within the dot-product bound
+   at k = 8 and 128, and at ``vpu_bench.GENERIC_KS`` (5 and 33, its
+   generic path), must lie within the dot-product bound
    ``2 * k * 2**-24 * (|a| @ |b|)`` of ``matmul_plain`` elementwise (the
    share that is not bit-equal is printed).  Each kernel is timed at
    ``ITERS`` passes (median of 5) and at ``ITERS // 2``; the ratio must lie
-   in [1.7, 2.3], or the compiler merged the passes.  The plain version is
-   timed for ``ITERS`` calls back to back, the kernel's work; so is
-   ``torch.matmul`` (TF32 off), K9's library yardstick.  Then
-   ``vpu_bench.main()`` runs with the launch counters set to 0 just before
-   and read just after, and must launch K8 and K9.
+   in [1.7, 2.3], or the compiler merged the passes.  Beside its bound each
+   prints its issue floor: the instructions the work needs (K8: its rounds
+   times ``ROUND_INSTRUCTIONS``, counted in the SASS; K9: an FFMA a
+   multiply-add) at the FFMA issue rate ``tools/issue_rates.py`` measures
+   on this card, at the SM clock ``nvidia-smi`` reads while the kernel runs
+   back to back (both printed); for K8 also the time the probe's own rate
+   for the whole round gives.  The plain version is timed for ``ITERS``
+   calls back to back, the kernel's work.  K9's library yardstick is
+   ``torch.matmul`` (TF32 off): its card time a call (queued behind a spin,
+   as a kernel's, median of 5) times ``ITERS``; the old figure, ``ITERS``
+   calls launched back to back by the host, is printed beside it and
+   measures the host's launches, not the card.  Then ``vpu_bench.main()``
+   runs with the launch counters set to 0 just before and read just after,
+   and must launch K8 and K9.
 2. Kernels, each against its plain PyTorch version on the card, on a
    512x512 wavefront of primary rays and one of random bounce rays, timed
    both ways, with the kernel's bound (below) printed beside its time (a
@@ -106,8 +116,11 @@ The second-to-last stdout line is the per-kernel JSON record (``ms``,
 ``plain_ms`` and ``bound_ms`` there are the bounce wavefront's, the shape
 of seven of a main path's eight bounces, K8's float32 chain's and K9's at
 k = 128; ``launches`` are the counts of the main path that runs the
-kernel, ``vpu_bench.main()`` for K8/K9; the log lines give every variant),
-the last one ``{"ok": true, "device": {...}}``.
+kernel, ``vpu_bench.main()`` for K8/K9; each row's ``variants`` map holds
+every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
+``bound_by`` and ``library_ms``, and for K8 (float32, bfloat16) and K9
+(k=8, k=128) also ``issue_floor_ms`` and ``sm_mhz``), the last one
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -129,6 +142,9 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 WALK_SHARE, WALK_MIN_RAYS = 1e-4, 2  # K2/K3, K6/K7: differing rays allowed (share of live, least)
 OPS_SLAB, OPS_MT, OPS_STAGE = 25, 54, 48
 ITERS_RATIO = (1.7, 2.3)  # time(ITERS) / time(ITERS // 2) of K8/K9
+# instructions a round of K8 in the SASS of csrc/vpu.cu: FFMA, FMNMX, FADD;
+# HMUL2, HADD2, HMNMX2, LOP3 (the abs), HFMA2 (the subtract)
+ROUND_INSTRUCTIONS = {"float32": 3, "bfloat16": 5}
 KERNELS = {  # id: (name, source, the TPU kernel it replaces)
     "K1": ("cull", "mcrt_tpu_torch/csrc/blocked.cu", "mcrt_tpu/accel/pallas_blocked.py:551"),
     "K2": ("closest", "mcrt_tpu_torch/csrc/blocked.cu", "mcrt_tpu/accel/pallas_blocked.py:733"),
@@ -185,17 +201,19 @@ def bound(ops: int, moved: int, peak: float = PEAK_FLOPS):
 
 
 class KernelResults:
-    """Per kernel: each wavefront's times and bound, and the largest error
-    against the plain version."""
+    """Per kernel: each wavefront's (or variant's) times and bound, and the
+    largest error against the plain version."""
 
     def __init__(self):
         self.rows = {k: {"ms": [], "plain_ms": [], "bound": [], "max_abs_err": 0.0,
-                         "library_ms": None} for k in KERNELS}
+                         "library_ms": None, "variants": {}} for k in KERNELS}
 
     def record(self, k, wf, ms, plain_ms, err, ops, moved, peak=PEAK_FLOPS, library_ms=None,
-               floor_ops=None):
+               floor_ops=None, issue=None):
         """``floor_ops``: a second count of the work (the list walks'
-        per-ray floor); both bounds are printed and the smaller is kept."""
+        per-ray floor); both bounds are printed and the smaller is kept.
+        ``issue``: (issue floor ms, sampled SM clock MHz), printed beside
+        the bound (K8/K9)."""
         r = self.rows[k]
         b_ms, by = bound(ops, moved, peak)
         if floor_ops is not None:
@@ -210,8 +228,14 @@ class KernelResults:
         r["plain_ms"].append(plain_ms)
         r["bound"].append((b_ms, by))
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["variants"][wf] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                             "library_ms": library_ms}
+        extra = ""
+        if issue is not None:
+            r["variants"][wf].update(issue_floor_ms=issue[0], sm_mhz=issue[1])
+            extra = f", issue floor {issue[0]:.4f} ms at {issue[1]:.0f} MHz SM clock"
         log(f"[kernels:{wf}] {k} {KERNELS[k][0]} {ms:.3f} ms (plain {plain_ms:.3f} ms), "
-            f"bound {b_ms:.4f} ms by {by} ({ops:.4e} operations, {moved} bytes)")
+            f"bound {b_ms:.4f} ms by {by} ({ops:.4e} operations, {moved} bytes){extra}")
 
 
 def check_closest(k, wf, kern, plain):
@@ -321,13 +345,31 @@ def cull_and_check(res, wf, packed, chunk, boxes, k_id="K1"):
 
 
 def vpu_kernels(res, device):
-    """K8/K9 against their plain versions, timed at ITERS and ITERS // 2;
-    then ``vpu_bench.main()``, the path that runs them, with the launch
-    counters set to 0 just before; returns its launch counts."""
+    """K8/K9 against their plain versions, timed at ITERS and ITERS // 2,
+    each beside its bound and its issue floor at the SM clock sampled while
+    it runs; then ``vpu_bench.main()``, the path that runs them, with the
+    launch counters set to 0 just before; returns its launch counts."""
     import torch
 
     from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.tools import issue_rates
     from mcrt_tpu_torch.tools import vpu_bench as vb
+    from mcrt_tpu_torch.tools.card import sm_clock_during
+
+    rates = issue_rates.measure()
+    sms, probes = rates["sms"], rates["probes"]
+    for name, p in probes.items():
+        log(f"[vpu] issue rate {name}: {p['lanes_per_clk_sm']:.2f} lanes/clk/SM "
+            f"({p['ops']} ops an apply, {p['warps_per_sm']} warps/SM), latency "
+            f"{p['latency_clk']:.2f} clk, SM clock {p['mhz']:.0f} MHz")
+
+    def issue_floor(fn, ms, instructions):
+        """(floor ms, sampled MHz): ``instructions`` lane-instructions at
+        the FFMA probe's measured issue rate (about one warp instruction a
+        clock per scheduler) on every SM, at the SM clock sampled while
+        ``fn`` runs."""
+        mhz, _ = sm_clock_during(fn, ms)
+        return issue_rates.floor_ms(instructions, probes["ffma"], sms, mhz), mhz
 
     def iters_ratio(k, label, full_ms, half_ms):
         ratio = full_ms / half_ms
@@ -346,12 +388,19 @@ def vpu_kernels(res, device):
         return run
 
     x = vb.chain_input(device)
-    # the float32 chain is recorded last: the JSON row carries the last record
-    for dtype, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FLOPS)):
+    # the float32 chain is recorded last: the row's top level carries the last record
+    for dtype, peak, probe in ((torch.bfloat16, PEAK_BF16, "round_bf16"),
+                               (torch.float32, PEAK_FLOPS, "round_f32")):
         label = str(dtype).split(".")[-1]
         ms, _, out = kernel_timed(lambda: vb.run_chain(x, dtype), KERNEL_REPS)
         half, _, _ = kernel_timed(lambda: vb.run_chain(x, dtype, vb.ITERS // 2), KERNEL_REPS)
         iters_ratio("K8", label, ms, half)
+        lanes = x.numel() // (2 if dtype == torch.bfloat16 else 1)  # bfloat16: packed pairs
+        rounds = vb.ITERS * vb.ROUNDS * lanes
+        issue = issue_floor(lambda: vb.run_chain(x, dtype), ms, rounds * ROUND_INSTRUCTIONS[label])
+        log(f"[vpu] K8 {label}: {ROUND_INSTRUCTIONS[label]} instructions a round; the probe's "
+            f"rate for the round alone ({probe}, 8 independent chains a thread) gives "
+            f"{issue_rates.floor_ms(rounds, probes[probe], sms, issue[1]):.4f} ms")
         vb.chain_plain(x, dtype)  # warm-up
         pms, _, plain = timed(repeated(lambda: vb.chain_plain(x, dtype)), 1)
         view = torch.int32 if dtype == torch.float32 else torch.int16
@@ -363,31 +412,42 @@ def vpu_kernels(res, device):
         if share or not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"K8 {label} differs from chain_plain: share {share:.2e}")
         ops = vb.ITERS * vb.ROUNDS * 5 * x.numel()
-        res.record("K8", label, ms, pms, err, ops, 2 * nbytes(out), peak)
+        res.record("K8", label, ms, pms, err, ops, 2 * nbytes(out), peak, issue=issue)
         log(f"[vpu] K8 {label}: {ops / (ms / 1e3) / 1e12:.3f} Tops/s sustained")
-    for k in vb.KS:
+    for k in vb.KS + vb.GENERIC_KS:
         a, b = vb.matmul_inputs(device, k)
         ms, _, out = kernel_timed(lambda: vb.run_matmul(a, b), KERNEL_REPS)
         half, _, _ = kernel_timed(lambda: vb.run_matmul(a, b, vb.ITERS // 2), KERNEL_REPS)
         iters_ratio("K9", f"k={k}", ms, half)
-        vb.matmul_plain(a, b)  # warm-up
-        pms, _, plain = timed(repeated(lambda: vb.matmul_plain(a, b)), 1)
-        torch.matmul(a, b)  # warm-up
-        lib_ms, _, _ = timed(repeated(lambda: torch.matmul(a, b)), 1)
+        fl = vb.ITERS * 2 * a.shape[0] * k * b.shape[1]
+        issue = issue_floor(lambda: vb.run_matmul(a, b), ms, fl // 2)  # an FFMA a multiply-add
+        plain = vb.matmul_plain(a, b)
         tol = 2 * k * 2.0**-24 * (a.double().abs() @ b.double().abs())
         diff = (out.double() - plain.double()).abs()
         share = (out.view(torch.int32) != plain.view(torch.int32)).float().mean().item()
         err = diff.max().item()
         log(f"[vpu] K9 k={k}: max |diff| {err:.3e} (dot bound up to {tol.max().item():.3e}), "
-            f"not bit-equal share {share:.2e}; x{vb.ITERS} back to back: plain {pms:.3f} ms, "
-            f"torch.matmul {lib_ms:.3f} ms")
+            f"not bit-equal share {share:.2e}")
         if not bool((diff <= tol).all()):
             raise AssertionError(f"K9 k={k} leaves the dot-product bound of matmul_plain")
-        fl = vb.ITERS * 2 * a.shape[0] * k * b.shape[1]
-        res.record("K9", f"k={k}", ms, pms, err, fl, nbytes(a, b, out),
-                   library_ms=lib_ms)
+        if k not in vb.KS:  # the generic path: checked and timed, not a row of its own
+            log(f"[vpu] K9 k={k} (generic path): {ms:.3f} ms, issue floor {issue[0]:.4f} ms "
+                f"at {issue[1]:.0f} MHz SM clock")
+            continue
+        pms, _, _ = timed(repeated(lambda: vb.matmul_plain(a, b)), 1)
+        torch.matmul(a, b)  # warm-up
+        lib_call, _, _ = kernel_timed(lambda: torch.matmul(a, b), KERNEL_REPS)
+        lib_ms = lib_call * vb.ITERS
+        host_ms, _, _ = timed(repeated(lambda: torch.matmul(a, b)), 1)
+        log(f"[vpu] K9 k={k}: plain x{vb.ITERS} back to back {pms:.3f} ms; torch.matmul card "
+            f"time {lib_call:.4f} ms a call (median of {KERNEL_REPS}), x{vb.ITERS} = "
+            f"{lib_ms:.3f} ms; [host-launched: x{vb.ITERS} back to back {host_ms:.3f} ms, "
+            f"the host's launch time]; the kernel is "
+            f"{'slower' if ms > lib_ms else 'faster'} than torch.matmul")
+        res.record("K9", f"k={k}", ms, pms, err, fl, nbytes(a, b, out), library_ms=lib_ms,
+                   issue=issue)
         log(f"[vpu] K9 k={k}: {fl / (ms / 1e3) / 1e12:.3f} TF/s sustained "
-            f"(torch.matmul {fl / (lib_ms / 1e3) / 1e12:.3f} TF/s)")
+            f"(torch.matmul {fl / (lib_ms / 1e3) / 1e12:.3f} TF/s on the card)")
 
     kernels.reset_launch_counts()
     rc = vb.main([])
@@ -782,7 +842,7 @@ def main() -> int:
             "name": f"{k} {name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"][-1], "plain_ms": r["plain_ms"][-1], "bound_ms": b_ms,
-            "bound_by": by, "library_ms": r["library_ms"]})
+            "bound_by": by, "library_ms": r["library_ms"], "variants": r["variants"]})
     log("[paths] card: " + card_line() + "; " + "; ".join(
         f"{label} {v[1]:.2f} ms/spp, {v[2]:.4e} rays/s" for label, v in paths.items()))
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -1,10 +1,13 @@
 """The card's name and power limit, to print beside every time measured on
-it (a card set below its maximum power runs slower under load), and the
-time a kernel takes on it."""
+it (a card set below its maximum power runs slower under load), the time a
+kernel takes on it, and the SM clock while a kernel runs.  ``nvidia-smi``
+is asked about the card torch runs on (its current device), by UUID: its
+own numbering ignores ``CUDA_VISIBLE_DEVICES``."""
 from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -13,11 +16,17 @@ import torch
 SPIN_CYCLES = 2_000_000
 
 
+def smi_id() -> str:
+    """``nvidia-smi -i``'s name for torch's current CUDA device: its UUID."""
+    uuid = str(torch.cuda.get_device_properties(torch.cuda.current_device()).uuid)
+    return uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"
+
+
 def card_line() -> str:
-    """``name, power.limit`` of the first card, as
+    """``name, power.limit`` of torch's current card, as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints it."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "-i", smi_id(), "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -43,3 +52,37 @@ def device_timed(fn, reps: int):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times, out
+
+
+def sm_clock_during(fn, call_ms: float, seconds: float = 1.0):
+    """(median MHz, every sample) of torch's current card's SM clock, which
+    ``nvidia-smi`` reads every 50 ms while ``fn`` (a call of about
+    ``call_ms`` on that card) runs back to back for about ``seconds``.  Two
+    batches of calls are queued before the sampler starts and one stays
+    queued until it is stopped, so every sample falls on a busy card."""
+    per_batch = max(1, int(50.0 / max(call_ms, 1e-3)))
+
+    def batch():
+        for _ in range(per_batch):
+            fn()
+        done = torch.cuda.Event()
+        done.record()
+        return done
+
+    pending = [batch(), batch()]
+    proc = subprocess.Popen(["nvidia-smi", "-i", smi_id(), "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            pending.pop(0).synchronize()
+            pending.append(batch())
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    torch.cuda.synchronize()
+    samples = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no SM clock sample")
+    return statistics.median(samples), samples

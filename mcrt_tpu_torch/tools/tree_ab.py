@@ -3,6 +3,7 @@ inputs in one process on one GPU.
 
     python -m mcrt_tpu_torch.tools.tree_ab [NAME=DIR ...] [--rounds 2] [--reps 5]
                                            [--kernels K1,K2,K3,K4,K5,K6,K7]
+    python -m mcrt_tpu_torch.tools.tree_ab [NAME=DIR ...] --kernels K8,K9
 
 Each DIR is the root of a copy of this repository; only its
 ``mcrt_tpu_torch/csrc`` is read, and it must keep this tree's C entry
@@ -24,7 +25,11 @@ made once, by this tree's Python code, for the scenes of the kernels that
   the inputs K4 and K5 are handed during one frame (as above; 8 launches
   each, summed);
 - ``sphere_field_instanced``: the same two wavefronts; K1 over the pair
-  boxes, then K6 and K7.
+  boxes, then K6 and K7;
+- the card micro-benchmark (``vpu_bench``, only when ``--kernels`` names
+  K8 or K9, which the default list does not): K8's bfloat16 and float32
+  chains on its (256, 1024) input and K9's products at k = 8 and 128, each
+  ``vpu_bench.ITERS`` passes in one launch.
 
 A round times every case of every tree, each case as the median of
 ``--reps`` calls, each call bracketed by ``torch.cuda.synchronize()`` and
@@ -32,8 +37,10 @@ timed with CUDA events on the card alone (the window queued behind a spin
 on the card, ``card.device_timed``); the trees' order is reversed every
 other round (``this, a, b, b, a, this``), so drift in the card's clock
 does not favour a tree.  Prints each tree's time for each case in each round and the mean
-over rounds.  K1's keys and K4/K5's outputs must equal this tree's
-(``torch.equal``: those kernels are exact); the walks' outputs are
+over rounds.  K1's keys and K4/K5's and K8's outputs must equal this
+tree's (``torch.equal``: those kernels are exact), K9's must lie within the
+dot-product bound ``2 * k * 2**-24 * (|a| @ |b|)`` of this tree's (its
+elements that differ in any bit are printed); the walks' outputs are
 compared with this tree's and their differing rays printed.  Each launch
 of a case of several (a frame's launches) is printed too, with its live
 rays (and, for K1, live tiles and entered (tile, chunk) pairs).  The
@@ -130,11 +137,21 @@ def _two_level_cases(device, cases):
                                      group)])
 
 
-# the scenes' case builders, by the kernels their cases time
+def _vpu_cases(device, cases):
+    from . import vpu_bench as vb
+
+    x = vb.chain_input(device)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases[f"K8 {str(dtype).split('.')[-1]}"] = ("K8", [(x.to(dtype).contiguous(), vb.ITERS)])
+    for k in vb.KS:
+        cases[f"K9 k={k}"] = ("K9", [(*vb.matmul_inputs(device, k), vb.ITERS)])
+
+
+# the case builders, by the kernels their cases time
 SCENES = ((("K1", "K2", "K3"), _flat_cases), (("K4", "K5"), _dense_cases),
-          (("K1", "K6", "K7"), _two_level_cases))
-ALL = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
-EXACT = ("K1", "K4", "K5")  # kernels whose every output must equal this tree's
+          (("K1", "K6", "K7"), _two_level_cases), (("K8", "K9"), _vpu_cases))
+ALL = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")  # the default --kernels
+EXACT = ("K1", "K4", "K5", "K8")  # kernels whose every output must equal this tree's
 
 
 def _inputs(device, wanted):
@@ -149,15 +166,26 @@ def _inputs(device, wanted):
 
 
 def _differing(k, out, ref) -> int:
-    """Outputs that differ from this tree's: keys (K1), rays (the rest)."""
+    """Outputs that differ from this tree's: keys (K1), elements in any
+    bit (K8, K9), rays (the rest)."""
     if k == "K1":
         return int((out != ref).sum())
+    if k in ("K8", "K9"):
+        view = torch.int16 if out.dtype == torch.bfloat16 else torch.int32
+        return int((out.view(view) != ref.view(view)).sum())
     out = out if isinstance(out, tuple) else (out,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     bad = torch.zeros_like(out[0], dtype=torch.bool)
     for a, b in zip(out, ref):
         bad |= a != b
     return int(bad.sum())
+
+
+def _within_dot_bound(name, case, out, ref, a, b):
+    """K9's output within ``2 * k * 2**-24 * (|a| @ |b|)`` of this tree's."""
+    tol = 2 * a.shape[1] * 2.0**-24 * (a.double().abs() @ b.double().abs())
+    if not bool(((out.double() - ref.double()).abs() <= tol).all()):
+        raise AssertionError(f"{name}: {case} leaves the dot-product bound of this tree's")
 
 
 def run(libs: dict, device, rounds: int, reps: int, wanted=frozenset(ALL)) -> dict:
@@ -183,10 +211,14 @@ def run(libs: dict, device, rounds: int, reps: int, wanted=frozenset(ALL)) -> di
                         per = [device_timed(lambda: fn(*a), reps)[0] for a in inputs]
                         ms = sum(per)
                         each[name][case] = per
-                        diff = sum(_differing(k, fn(*a), r) for a, r in zip(inputs, refs[case]))
+                        outs = [fn(*a) for a in inputs]
+                        diff = sum(_differing(k, o, r) for o, r in zip(outs, refs[case]))
                         if k in EXACT and diff:
                             raise AssertionError(f"{name}: {case} outputs differ from this "
                                                  f"tree's ({diff})")
+                        if k == "K9":
+                            for a, o, r in zip(inputs, outs, refs[case]):
+                                _within_dot_bound(name, case, o, r, *a[:2])
                         times[name].setdefault(case, []).append(ms)
                         print(f"[round {rnd}] {name} {case} ({len(inputs)} launches): "
                               f"{ms:.4f} ms, differing from this tree {diff}", flush=True)

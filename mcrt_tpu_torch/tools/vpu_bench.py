@@ -32,6 +32,7 @@ ITERS = 2000
 ROUNDS = 20  # rounds of (multiply-add, min, abs-subtract) in one pass
 MM_ROWS = 512
 KS = (8, 128)
+GENERIC_KS = (5, 33)  # more k for K9's generic path: under its k unroll of 32, and past it
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

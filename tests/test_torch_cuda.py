@@ -450,7 +450,23 @@ def test_vpu_chain_equals_plain_version(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", vpu_bench.KS)
+@pytest.mark.parametrize("dtype,many", [(torch.bfloat16, 39), (torch.float32, 75)])
+def test_vpu_chain_does_not_depend_on_iters(cuda_device, dtype, many):
+    """K8 splits a chain's passes over warps and runs a warp's S at once
+    (S = 4 for bfloat16, 8 for float32) and the rest one by one.  At 1 and
+    3 passes no warp of an H100's full grid (132 SMs x 64 warps) gets S; at
+    ``many`` (9 * S + 3) passes every warp gets more than 2 * S, most not a
+    multiple of S: each gives chain_plain's bits."""
+    x = vpu_bench.chain_input(cuda_device)
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    plain = vpu_bench.chain_plain(x, dtype).view(view)
+    for n in (1, 3, many):
+        out = vpu_bench.run_chain(x, dtype, iters=n)
+        assert torch.equal(out.view(view), plain), f"{n} passes"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", vpu_bench.KS + vpu_bench.GENERIC_KS)
 def test_vpu_matmul_within_dot_bound_of_plain_version(cuda_device, k):
     a, b = vpu_bench.matmul_inputs(cuda_device, k)
     before = kernels.launch_counts()["K9"]
@@ -518,6 +534,16 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, isolated):
                        text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_issue_rates_needs_a_card():
+    """The issue-rate probe refuses to run, with code 2, where there is no
+    CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the probe would run in full")
+    from mcrt_tpu_torch.tools import issue_rates
+
+    assert issue_rates.main([]) == 2
 
 
 def test_profile_frame_needs_a_card():

@@ -56,7 +56,7 @@ def test_chain_plain_equals_jax(jvb, dtype):
     np.testing.assert_array_equal(_bits(out), ref_bits)
 
 
-@pytest.mark.parametrize("k", tvb.KS)
+@pytest.mark.parametrize("k", tvb.KS + tvb.GENERIC_KS)
 def test_matmul_plain_within_dot_bound_of_jax(jvb, k):
     a, b = tvb.matmul_inputs("cpu", k)
     with pltpu.force_tpu_interpret_mode():
@@ -106,6 +106,19 @@ def test_fma_f32_rounds_once():
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     twice = (a.astype(np.float64) * b + c).astype(np.float32)
     assert twice[0] != want[0]  # the case a float64 sum cast once more gets wrong
+
+
+def test_issue_floor_counts_lanes_per_apply():
+    """A probe's rate counts its operations an apply: 128 lanes a clock of
+    a 4-operation round is 32 rounds a clock on each SM."""
+    from mcrt_tpu_torch.tools import issue_rates
+
+    one = {"ops": 1, "lanes_per_clk_sm": 128.0}
+    four = {"ops": 4, "lanes_per_clk_sm": 128.0}
+    # 132 SMs x 128 lanes x 1,980 MHz = 33.4541e12 lane-operations a second
+    assert issue_rates.floor_ms(33.4541e12, one, 132, 1980.0) == pytest.approx(1e3)
+    assert issue_rates.floor_ms(1e9, four, 132, 1980.0) == pytest.approx(
+        4 * issue_rates.floor_ms(1e9, one, 132, 1980.0))
 
 
 def test_vpu_bench_needs_a_card():
