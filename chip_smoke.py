@@ -90,6 +90,30 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    the instance transforms or the walks' fused prefilter flips can
    differ.  Each prints ms per spp,
    rays/s (closest plus shadow rays actually traced) and peak memory.
+5. Slice-9 paths at the same size, each with the launch counters set to 0
+   just before it is driven and read just after, and every frame under
+   the sync check: ``sphere_field`` with SBVH blocks (K1-K3; its build
+   time, references against triangles and blocks printed; the image
+   against the SAH image of the same frames); ``render_spp_batch`` of
+   ``SPP_BATCH`` samples (K1-K3; equal to the mean of the same
+   ``render_sample`` calls); ``sphere_field`` with one sphere moved for
+   ``ANIM_FRAMES`` frames by ``SceneAnimator.set_transform`` (made from
+   ``Renderer.scene``) and ``update_scene``, ``build_blocked`` replaced by
+   a raising stand-in (K1-K3; each frame's tables equal ``refit_blocked``
+   of the same geometry on the CPU bit for bit, each frame agrees with a
+   rebuilt ``Renderer``'s, the refit's and the transform's card times
+   printed); ``sphere_field_instanced`` with one instance moved by
+   ``set_shape_transform`` alike (K1, K6, K7; ``refit_two_level_scene``,
+   the host builds replaced; tables equal to the CPU refit's, frames
+   against rebuilds, and the moved instance's pixels changed, which fails
+   if the refit left the world rows ``tw_rows`` the walks read); and
+   ``texbox`` from ``tests/assets/texbox.obj`` (two textures decoded
+   without an imaging library; CUDA-vs-CPU parity at 64x64 as in phase 3;
+   the golden ``tests/goldens/texbox.npz`` at its own settings, 32x32, 16
+   spp, max_depth 3, RANDOM, through ``AUTO`` on K4/K5, within its bound
+   of 0.02 mean-relative error; then a 512x512 main-path run as in phase
+   4).  Images agree at the parity share (99% of pixels within rtol 1e-3
+   / atol 1e-4).
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
@@ -116,7 +140,8 @@ The second-to-last stdout line is the per-kernel JSON record (``ms``,
 ``plain_ms`` and ``bound_ms`` there are the bounce wavefront's, the shape
 of seven of a main path's eight bounces, K8's float32 chain's and K9's at
 k = 128; ``launches`` are the counts of the main path that runs the
-kernel, ``vpu_bench.main()`` for K8/K9; each row's ``variants`` map holds
+kernel, ``vpu_bench.main()`` for K8/K9, and ``launches_by_path`` every
+phase's count of phases 4 and 5; each row's ``variants`` map holds
 every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by`` and ``library_ms``, and for K8 (float32, bfloat16) and K9
 (k=8, k=128) also ``issue_floor_ms`` and ``sm_mhz``), the last one
@@ -125,6 +150,7 @@ every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
 import time
@@ -140,6 +166,14 @@ PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BF16 = 133.8e12  # H100 SXM5 bfloat16 outside the tensor cores (Hopper white paper)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 WALK_SHARE, WALK_MIN_RAYS = 1e-4, 2  # K2/K3, K6/K7: differing rays allowed (share of live, least)
+ANIM_SHAPE, ANIM_FRAMES = 6, 3  # the sphere the animated phases move, and for how many frames
+MIN_CHANGED = 0.002  # least share of pixels a moved sphere must change
+SPP_BATCH = 4  # samples of the render_spp_batch phase
+HERE = os.path.dirname(os.path.abspath(__file__))
+TEXBOX = os.path.join(HERE, "tests", "assets", "texbox.obj")
+TEXBOX_CAMERA = dict(eye=(0.0, 1.0, 2.5), target=(0.0, 0.8, 0.0), fov_deg=50.0)
+GOLDEN = os.path.join(HERE, "tests", "goldens", "texbox.npz")
+GOLDEN_REL = 0.02  # the golden's own bound on the mean-relative error
 OPS_SLAB, OPS_MT, OPS_STAGE = 25, 54, 48
 ITERS_RATIO = (1.7, 2.3)  # time(ITERS) / time(ITERS // 2) of K8/K9
 # instructions a round of K8 in the SASS of csrc/vpu.cu: FFMA, FMNMX, FADD;
@@ -180,6 +214,22 @@ def timed(fn, reps: int):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times, out
+
+
+def host_queue_ms(fn, reps: int) -> float:
+    """Median milliseconds the host takes to queue one call of ``fn`` (no
+    synchronisation inside the window): where it is longer than the call's
+    card time, the card waits for the host."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def kernel_timed(fn, reps: int):
@@ -703,32 +753,70 @@ def dense_frame_phase(renderer, label):
         raise AssertionError(f"{label}: a frame launched no K4 or no K5")
 
 
-def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=None):
+def main_cfg(builder="SAH", spp=MAIN_FRAMES + 3):
+    """The main paths' configuration: 512x512, 8 bounces, Sobol."""
+    from mcrt_tpu_torch.config import (BuilderType, BVHConfig, IntegratorConfig,
+                                       RenderConfig, SamplerConfig, SamplerType)
+
+    return RenderConfig(width=WIDTH, height=HEIGHT, spp=spp,
+                        sampler=SamplerConfig(type=SamplerType.SOBOL),
+                        bvh=BVHConfig(builder=BuilderType[builder]),
+                        integrator=IntegratorConfig(max_depth=MAX_DEPTH))
+
+
+def check_launches(label, counts, expect, forbid):
+    missing = [k for k in expect if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched on the main path: {missing}")
+    stray = [k for k in forbid if counts[k]]
+    if stray:
+        raise AssertionError(f"{label}: kernels of another path launched: {stray}")
+
+
+def check_no_sync(label, sites):
+    log(f"[{label}] synchronizing calls in one frame: {sum(sites.values())} "
+        + ", ".join(f"{site} x{n}" for site, n in sites.most_common()))
+    if sites:
+        raise AssertionError(f"{label}: the frame waits for the card at {dict(sites)}")
+
+
+def agreement(label, what, a, b, min_share=PARITY_MIN_SHARE):
+    """Share of pixels of images ``a`` and ``b`` within rtol 1e-3 / atol
+    1e-4; raises below ``min_share``."""
+    import torch
+
+    share = torch.isclose(a, b, rtol=1e-3, atol=1e-4).all(dim=-1).float().mean().item()
+    log(f"[{label}] {what}: pixels agreeing (rtol 1e-3, atol 1e-4): {share:.4f}; means "
+        f"{a.mean().item():.5f} / {b.mean().item():.5f}")
+    if share < min_share:
+        raise AssertionError(f"{label}: {what}: agreement {share:.4f} < {min_share}")
+    return share
+
+
+def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=None,
+                    builder="SAH"):
     """``Renderer`` on ``scene``: returns (launch counts, ms/spp, rays/s,
-    image mean); then ``frame_phase(renderer, label)``, if given, on one
-    more frame."""
+    image mean, image after the timed frames); then ``frame_phase(renderer,
+    label)``, if given, on one more frame."""
     import torch
 
     from mcrt_tpu_torch import Renderer
     from mcrt_tpu_torch.accel import Intersector, kernels
-    from mcrt_tpu_torch.config import (BuilderType, BVHConfig, IntegratorConfig,
-                                       RenderConfig, SamplerConfig, SamplerType)
     from mcrt_tpu_torch.tools.profile_frame import sync_sites
     from mcrt_tpu_torch.tools.card import card_line
 
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=MAIN_FRAMES + 3,
-                       sampler=SamplerConfig(type=SamplerType.SOBOL),
-                       bvh=BVHConfig(builder=BuilderType.SAH),
-                       integrator=IntegratorConfig(max_depth=MAX_DEPTH))
+    cfg = main_cfg(builder)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     renderer = Renderer(scene, camera, cfg, device=device)
     accel = renderer.intersector.accel
     blocks = getattr(accel, "blas", accel)
     log(f"[{label}] accel {type(accel).__name__} build {time.perf_counter() - t0:.2f} s, "
-        f"builder {blocks.builder}, {blocks.num_blocks} blocks")
-    if blocks.builder != "sah":
-        raise AssertionError(f"the SAH build did not run (builder {blocks.builder}): "
+        f"builder {blocks.builder}, {blocks.num_blocks} blocks, "
+        f"{int((blocks.slot_prim >= 0).sum())} references to "
+        f"{int(scene.geometry.face_valid.sum())} triangles")
+    if blocks.builder != builder.lower():
+        raise AssertionError(f"the {builder} build did not run (builder {blocks.builder}): "
                              "the native library failed to build or load")
 
     kernels.reset_launch_counts()
@@ -753,11 +841,8 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=No
     sites = sync_sites(lambda: renderer.step(1))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    log(f"[{label}] synchronizing calls in one frame: {sum(sites.values())} "
-        + ", ".join(f"{site} x{n}" for site, n in sites.most_common()))
-    if sites:
-        raise AssertionError(f"{label}: the frame waits for the card at {dict(sites)}")
-    img = renderer.display_image()
+    check_no_sync(label, sites)
+    img = renderer.display_image().clone()
     log(f"[{label}] counting/warm-up frame {warm[0]:.1f} ms; frames (ms): "
         + ", ".join(f"{t:.1f}" for t in frame_ms))
     mean = img.mean().item()
@@ -765,12 +850,7 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=No
         raise AssertionError(f"{label}: image not finite/positive (mean {mean})")
     if tuple(img.shape) != (HEIGHT, WIDTH, 3):
         raise AssertionError(f"{label}: image shape {tuple(img.shape)}")
-    missing = [k for k in expect if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"{label}: kernels not launched on the main path: {missing}")
-    stray = [k for k in forbid if counts[k]]
-    if stray:
-        raise AssertionError(f"{label}: kernels of another path launched: {stray}")
+    check_launches(label, counts, expect, forbid)
     rays_s = rays_per_spp / (ms / 1e3)
     log(f"[{label}] {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, sobol: {ms:.2f} ms/spp (median of "
         f"{MAIN_FRAMES}), {rays_per_spp} rays/spp, {rays_s:.4e} rays/s, "
@@ -779,7 +859,266 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=No
         f"card {card_line()}")
     if frame_phase:
         frame_phase(renderer, label)
-    return counts, ms, rays_s, mean
+    return counts, ms, rays_s, mean, img
+
+
+def frames_timed(label, frames):
+    """Each callable of ``frames`` (one frame of a phase) under the sync
+    check, timed on the host clock between two ``torch.cuda.synchronize()``;
+    returns every frame's ms."""
+    import collections
+
+    import torch
+
+    from mcrt_tpu_torch.tools.profile_frame import sync_sites
+
+    times, sites = [], collections.Counter()
+    for fn in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sites += sync_sites(fn)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    check_no_sync(label, sites)
+    return times
+
+
+class RaisingBuild:
+    """Stands in for a host build while a phase must refit: any call
+    raises.  Restores the module's own function on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.own = getattr(self.module, self.name)
+
+        def boom(*args, **kwargs):
+            raise AssertionError(f"{self.name} ran during a refit-only edit")
+
+        setattr(self.module, self.name, boom)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.own)
+
+
+def nan_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(torch.nan_to_num(a.cpu(), nan=7.0), torch.nan_to_num(b.cpu(), nan=7.0))
+
+
+def spp_batch_phase(renderer, device, frames=SPP_BATCH):
+    """``render_spp_batch`` over ``frames`` samples of the renderer's scene
+    through its intersector: launch counts around it, its time a sample,
+    and the result equal to the mean of the same ``render_sample`` calls
+    made one by one."""
+    import torch
+
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.parallel.render import render_spp_batch
+    from mcrt_tpu_torch.renderer import render_sample
+    from mcrt_tpu_torch.tools.card import card_line
+
+    label = "spp_batch"
+    args = (renderer.scene, renderer.camera)
+    kernels.reset_launch_counts()
+    ms, _, out = timed(lambda: render_spp_batch(*args, range(frames), renderer.cfg,
+                                                renderer.intersector), 1)
+    counts = kernels.launch_counts()
+    check_launches(label, counts, ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7"))
+    each = torch.stack([render_sample(*args, f, renderer.cfg, renderer.intersector)[0]
+                        for f in range(frames)]).mean(0)
+    equal = torch.equal(out, each)
+    log(f"[{label}] render_spp_batch of {frames} samples, {WIDTH}x{HEIGHT}, {MAX_DEPTH} "
+        f"bounces: {ms:.2f} ms ({ms / frames:.2f} ms/spp), launches {counts}; equal to the "
+        f"mean of the same render_sample calls: {equal}; card {card_line()}")
+    if not equal or tuple(out.shape) != (WIDTH * HEIGHT, 3) or not out.mean().item() > 0.0:
+        raise AssertionError("render_spp_batch differs from the mean of its samples")
+    return counts
+
+
+def animated_phase(r, first):
+    """A sphere of ``sphere_field`` (rendered by ``r``) moved for
+    ``ANIM_FRAMES`` frames through ``SceneAnimator`` (made from
+    ``Renderer.scene``) and ``update_scene``, with the host build replaced
+    by a raising stand-in: the refit path only.  Each frame's tables equal
+    a CPU refit of the same geometry, bit for bit; each frame agrees with a
+    rebuilt ``Renderer``'s; the first moved frame differs from ``first``
+    (the unmoved frame 0)."""
+    from mcrt_tpu_torch import Renderer
+    # two_level binds build_blocked when it is imported: import it before the stand-in
+    from mcrt_tpu_torch.accel import blocked, kernels, two_level  # noqa: F401
+    from mcrt_tpu_torch.scene.dynamic import SceneAnimator, translation
+    from mcrt_tpu_torch.tools.card import card_line, device_timed
+
+    label = "animated"
+    camera, device = r.camera, r.device
+    base = r.intersector.accel
+    anim = SceneAnimator.create(r.scene)
+    poses = [translation((0.4 * k, 0.5, 0.3 * k)) for k in range(1, ANIM_FRAMES + 1)]
+    kept = []
+
+    def frame(m):
+        def run():
+            r.update_scene(anim.set_transform(ANIM_SHAPE, m))
+            r.step(1)
+            kept.append((r.scene, r.intersector.accel, r.display_image().clone()))
+        return run
+
+    kernels.reset_launch_counts()
+    with RaisingBuild(blocked, "build_blocked"):
+        times = frames_timed(label, [frame(m) for m in poses])
+    counts = kernels.launch_counts()
+    check_launches(label, counts, ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7"))
+    t = anim.identity_transforms()
+    t[ANIM_SHAPE] = poses[-1]
+    moved = kept[-1][0]
+
+    def transform():
+        return anim.transformed(t)
+
+    def refit():
+        return blocked.refit_blocked(base, moved.geometry)
+
+    tr_ms, refit_ms = (device_timed(f, KERNEL_REPS)[0] for f in (transform, refit))
+    tr_host, refit_host = (host_queue_ms(f, KERNEL_REPS) for f in (transform, refit))
+    log(f"[{label}] sphere_field, shape {ANIM_SHAPE} moved for {ANIM_FRAMES} frames through "
+        f"update_scene, no host build: transform + refit + frame {', '.join(f'{x:.1f}' for x in times)} "
+        f"ms (median {statistics.median(times):.2f} ms/spp); card time (the host's time to "
+        f"queue it): transform of {moved.geometry.positions.shape[0]} vertices {tr_ms:.3f} "
+        f"({tr_host:.3f}) ms, refit_blocked of {base.num_blocks} blocks {refit_ms:.3f} "
+        f"({refit_host:.3f}) ms (medians of {KERNEL_REPS}); launches {counts}; card "
+        f"{card_line()}")
+    cpu_base = base.to("cpu")
+    for k, (sc, acc, img) in enumerate(kept):
+        cpu = blocked.refit_blocked(cpu_base, sc.geometry.to("cpu"))
+        bad = [f for f in ("tri", "aabb", "slot_prim", "bounds", "chunk_aabb")
+               if not nan_equal(getattr(acc, f), getattr(cpu, f))]
+        if bad or acc.num_blocks != cpu.num_blocks:
+            raise AssertionError(f"{label}: frame {k}: the card's refit differs from the "
+                                 f"CPU's in {bad}")
+        t0 = time.perf_counter()
+        rebuilt = Renderer(sc, camera, main_cfg(spp=1), device=device)
+        build_s = time.perf_counter() - t0
+        agreement(label, f"frame {k} against a rebuilt Renderer (host SAH build "
+                  f"{build_s:.2f} s)", img, rebuilt.render())
+    log(f"[{label}] refitted tables equal a CPU refit of the same geometry, bit for bit, "
+        f"on all {len(kept)} frames")
+    changed = 1.0 - agreement(label, "first moved frame against the unmoved frame 0",
+                              kept[0][2], first, min_share=0.0)
+    if changed < MIN_CHANGED:
+        raise AssertionError(f"{label}: moving a sphere changed {changed:.4f} of the pixels")
+    return counts
+
+
+def animated_instanced_phase(device):
+    """An instance of ``sphere_field_instanced`` moved by
+    ``set_shape_transform`` through ``update_scene``, which must refit
+    (``refit_two_level_scene``: host builds replaced by raising
+    stand-ins); each frame agrees with a rebuilt ``Renderer``'s, and the
+    moved instance's pixels changed (the refit moved ``tw_rows``, which
+    K6/K7 read)."""
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.accel import blocked, kernels, two_level
+    from mcrt_tpu_torch.scene.builders import sphere_field_instanced
+    from mcrt_tpu_torch.scene.dynamic import set_shape_transform, translation
+    from mcrt_tpu_torch.tools.card import card_line, device_timed
+
+    label = "animated_instanced"
+    scene, camera = sphere_field_instanced(device=device)
+    r = Renderer(scene, camera, main_cfg(spp=1), device=device)
+    first = r.render(1).clone()
+    base = r.intersector.accel
+    home = scene.shapes.to_world[ANIM_SHAPE].cpu().numpy()
+    poses = [translation((0.4 * k, 0.5, 0.3 * k)) @ home for k in range(1, ANIM_FRAMES + 1)]
+    kept = []
+
+    def frame(m):
+        def run():
+            r.update_scene(set_shape_transform(r.scene, ANIM_SHAPE, m))
+            r.step(1)
+            kept.append((r.scene, r.intersector.accel, r.display_image().clone()))
+        return run
+
+    kernels.reset_launch_counts()
+    with RaisingBuild(two_level, "build_two_level_scene"), RaisingBuild(blocked, "build_blocked"):
+        times = frames_timed(label, [frame(m) for m in poses])
+    counts = kernels.launch_counts()
+    check_launches(label, counts, ("K1", "K6", "K7"), ("K2", "K3", "K4", "K5"))
+    moved = kept[-1][0]
+
+    def refit():
+        return two_level.refit_two_level_scene(base, moved)
+
+    refit_ms = device_timed(refit, KERNEL_REPS)[0]
+    refit_host = host_queue_ms(refit, KERNEL_REPS)
+    log(f"[{label}] shape {ANIM_SHAPE} moved for {ANIM_FRAMES} frames: set_shape_transform "
+        f"+ refit + frame {', '.join(f'{x:.1f}' for x in times)} ms (median "
+        f"{statistics.median(times):.2f} ms/spp); refit_two_level_scene of "
+        f"{base.num_pairs} pairs {refit_ms:.3f} ms card time, {refit_host:.3f} ms the host's "
+        f"time to queue it (medians of {KERNEL_REPS}); launches {counts}; card {card_line()}")
+    cpu_base = base.to("cpu")
+    for k, (sc, acc, img) in enumerate(kept):
+        cpu = two_level.refit_two_level_scene(cpu_base, sc.to("cpu"))
+        bad = [f for f in ("world_to_object", "tw_rows", "pair_aabb", "pair_chunk", "bounds")
+               if not nan_equal(getattr(acc, f), getattr(cpu, f))]
+        if bad:
+            raise AssertionError(f"{label}: frame {k}: the card's refit differs from the "
+                                 f"CPU's in {bad}")
+        agreement(label, f"frame {k} against a rebuilt Renderer", img,
+                  Renderer(sc, camera, main_cfg(spp=1), device=device).render())
+    changed = 1.0 - agreement(label, "first moved frame against the unmoved frame 0",
+                              kept[0][2], first, min_share=0.0)
+    if changed < MIN_CHANGED:
+        raise AssertionError(f"{label}: moving an instance changed {changed:.4f} of the "
+                             "pixels: were the world rows refitted?")
+    return counts
+
+
+def texbox_phase(device):
+    """``scene_from_obj`` of the committed ``tests/assets/texbox.obj``: two
+    textures decoded (no imaging library), CUDA-vs-CPU parity at 64x64 as
+    ``parity_phase``, then the golden ``tests/goldens/texbox.npz`` at its
+    own settings through ``AUTO`` (32x32, 16 spp, max_depth 3, RANDOM)
+    within its own bound, with the launch counters around that render."""
+    import numpy as np
+    import torch
+
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.config import (IntegratorConfig, RenderConfig, SamplerConfig,
+                                       SamplerType)
+    from mcrt_tpu_torch.scene.builders import scene_from_obj
+
+    label = "texbox"
+    had_pil = "PIL" in sys.modules
+    scene, camera = scene_from_obj(TEXBOX, camera_kw=TEXBOX_CAMERA, device=device)
+    if "PIL" in sys.modules and not had_pil:
+        raise AssertionError("scene_from_obj imported an imaging library")
+    log(f"[{label}] {int(scene.geometry.face_valid.sum())} triangles, "
+        f"{scene.textures.num} textures decoded ({scene.textures.data.shape[1]} texels)")
+    if scene.textures.num != 2:
+        raise AssertionError(f"{label}: {scene.textures.num} textures, expected 2")
+    cfg = RenderConfig(width=64, height=64, spp=1, sampler=SamplerConfig(type=SamplerType.SOBOL),
+                       integrator=IntegratorConfig(max_depth=3))
+    card, cpu = (Renderer(*scene_from_obj(TEXBOX, camera_kw=TEXBOX_CAMERA, device=dev), cfg,
+                          device=dev).render().cpu() for dev in (device, "cpu"))
+    agreement(label, "64x64 sobol, CUDA against CPU", card, cpu)
+    golden = RenderConfig(width=32, height=32, spp=16, samples_per_pass=16,
+                          integrator=IntegratorConfig(max_depth=3))
+    kernels.reset_launch_counts()
+    img = Renderer(scene, camera, golden, device=device).render()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
+    ref = np.load(GOLDEN)["image"].astype(np.float32)
+    rel = float(np.abs(img.cpu().numpy() - ref).mean() / max(float(ref.mean()), 1e-6))
+    log(f"[{label}] golden {os.path.basename(GOLDEN)} (32x32, 16 spp, max_depth 3, random) "
+        f"through AUTO: mean-relative error {rel:.5f} (bound {GOLDEN_REL}), launches {counts}")
+    if not rel < GOLDEN_REL or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: golden mean-relative error {rel:.5f}")
+    return scene, camera
 
 
 def main() -> int:
@@ -789,6 +1128,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import mcrt_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from mcrt_tpu_torch import Renderer
     from mcrt_tpu_torch.accel import kernels
     from mcrt_tpu_torch.scene.builders import sphere_field_instanced, textured_hall
     from mcrt_tpu_torch.tools.card import card_line
@@ -823,7 +1163,21 @@ def main() -> int:
                                      frame_phase=dense_frame_phase),
             "instanced": main_path_phase("instanced", *sphere_field_instanced(device=device),
                                          device, ("K1", "K6", "K7"), ("K2", "K3", "K4", "K5")),
+            "sbvh": main_path_phase("sbvh", scene, camera, device, ("K1", "K2", "K3"),
+                                    ("K4", "K5", "K6", "K7"), builder="SBVH"),
         }
+        agreement("sbvh", "against the SAH render of the same frames", paths["sbvh"][4],
+                  paths["main"][4])
+        r = Renderer(scene, camera, main_cfg(spp=1), device=device)
+        first = r.render(1).clone()  # frame 0, unmoved
+        phase_counts = {label: v[0] for label, v in paths.items()}
+        phase_counts["spp_batch"] = spp_batch_phase(r, device)
+        phase_counts["animated"] = animated_phase(r, first)
+        phase_counts["animated_instanced"] = animated_instanced_phase(device)
+        texbox, texbox_camera = texbox_phase(device)
+        paths["texbox"] = main_path_phase("texbox", texbox, texbox_camera, device, ("K4", "K5"),
+                                          ("K1", "K2", "K3", "K6", "K7"))
+        phase_counts["texbox"] = paths["texbox"][0]
     baked, inst = paths["main"][3], paths["instanced"][3]
     log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
         f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")
@@ -840,7 +1194,9 @@ def main() -> int:
         b_ms, by = r["bound"][-1]
         kernel_rows.append({
             "name": f"{k} {name}", "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": r["max_abs_err"],
+            "launches": launches[k],
+            "launches_by_path": {p: c[k] for p, c in phase_counts.items() if c[k]},
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"][-1], "plain_ms": r["plain_ms"][-1], "bound_ms": b_ms,
             "bound_by": by, "library_ms": r["library_ms"], "variants": r["variants"]})
     log("[paths] card: " + card_line() + "; " + "; ".join(

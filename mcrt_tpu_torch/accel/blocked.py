@@ -64,8 +64,8 @@ class BlockedAccel(TensorRecord):
     ``chunk_aabb``: (NBpad/128, 8) union box per 128-block cull chunk.
     ``slot_prim``: (NT,) slot -> primitive id (-1 padding).
     ``bounds``: (2, 3) scene lo/hi for the ray-coherence key.
-    ``builder``: which decomposition ran ("sah", or "lbvh" when the native
-    SAH library was unavailable or not asked for)."""
+    ``builder``: which decomposition ran ("sah", "sbvh", or "lbvh" when the
+    native library was unavailable or not asked for)."""
 
     tri: torch.Tensor
     aabb: torch.Tensor
@@ -100,33 +100,17 @@ def _morton_u32(c01: np.ndarray) -> np.ndarray:
             | expand(v[:, 2])).astype(np.uint64)
 
 
-def _chunk_bounds(aabb: np.ndarray) -> np.ndarray:
-    """(NBpad//128, 8) union box per 128-block cull chunk.  All-empty
-    chunks stay NaN-poisoned (slab comparisons false -> chunk skipped)."""
-    import warnings
-
-    nbpad = aabb.shape[0]
-    ch = aabb.reshape(nbpad // 128, 128, 8)
-    out = np.empty((nbpad // 128, 8), np.float32)
-    with np.errstate(invalid="ignore"), warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN chunks
-        out[:, 0:3] = np.nanmin(ch[:, :, 0:3], axis=1)
-        out[:, 3:6] = np.nanmax(ch[:, :, 3:6], axis=1)
-    out[:, 6:8] = 0.0
-    return out
-
-
 def build_blocked(geom: Geometry, cfg: BVHConfig | None = None,
                   device=None) -> BlockedAccel:
     """Host-side build.  SAH (default): native binned-SAH leaves become
     blocks, greedily merged while they fit 128 slots; falls back to Morton
     blocks (LBVH) when the native library is unavailable, as the JAX
-    package does.  LBVH: Morton-ordered triangles cut into full blocks."""
+    package does.  LBVH: Morton-ordered triangles cut into full blocks.
+    SBVH: the native spatial-split decomposition, in which a triangle that
+    straddles a split is referenced from more than one block and the block
+    boxes come from the plane-clipped references (``_pack_ref_blocks``);
+    falls back to SAH when the native library is unavailable."""
     cfg = cfg or BVHConfig()
-    if cfg.builder == BuilderType.SBVH:
-        raise NotImplementedError(
-            "SBVH blocks are not ported yet (ROADMAP, Queue 1: refit and "
-            "dynamic scenes); use BuilderType.SAH or LBVH")
     device = geom.positions.device if device is None else device
     pos = geom.positions.cpu().numpy()
     idx = geom.indices.cpu().numpy()
@@ -134,8 +118,16 @@ def build_blocked(geom: Geometry, cfg: BVHConfig | None = None,
     prim_ids = np.nonzero(valid)[0].astype(np.int32)
     tri_idx = idx[prim_ids]
 
+    if cfg.builder == BuilderType.SBVH:
+        from ..runtime.native import sbvh_block_refs
+
+        sbvh = sbvh_block_refs(pos, tri_idx, BLOCK, cfg.sah_bins, cfg.max_split_depth,
+                               cfg.min_overlap, cfg.extra_refs_budget)
+        if sbvh is not None:
+            return _pack_ref_blocks(prim_ids, tri_idx, pos, *sbvh, device=device)
+
     sah = None
-    if cfg.builder == BuilderType.SAH:
+    if cfg.builder in (BuilderType.SAH, BuilderType.SBVH):
         from ..runtime.native import sah_block_order
 
         sah = sah_block_order(pos, tri_idx, BLOCK, cfg.sah_bins)
@@ -212,14 +204,134 @@ def build_blocked(geom: Geometry, cfg: BVHConfig | None = None,
     else:
         bounds = np.stack([pmin.min(0), pmax.max(0)]).astype(np.float32)
 
+    return _accel(tri, aabb, slot_prim, bounds, nb, "sah" if sah is not None else "lbvh",
+                  device)
+
+
+def _accel(tri, aabb, slot_prim, bounds, nb, builder, device) -> BlockedAccel:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return BlockedAccel(
-        tri=dev(tri), aabb=dev(aabb), slot_prim=dev(slot_prim),
-        bounds=dev(bounds), chunk_aabb=dev(_chunk_bounds(aabb)),
-        num_blocks=nb, builder="sah" if sah is not None else "lbvh",
-    )
+    aabb = dev(aabb)
+    return BlockedAccel(tri=dev(tri), aabb=aabb, slot_prim=dev(slot_prim), bounds=dev(bounds),
+                        chunk_aabb=chunk_union(aabb), num_blocks=nb, builder=builder)
+
+
+def _pack_ref_blocks(prim_ids, tri_idx, pos, ref_tri, ref_bounds, bstart,
+                     device) -> BlockedAccel:
+    """Pack an SBVH reference decomposition into the fixed-block layout
+    (the JAX package's code).  Consecutive leaves are merged greedily while
+    they fit 128 slots; each block's box comes from its references'
+    clipped bounds, while the walks test each reference's full triangle,
+    so a hit found through any reference of a triangle is a true hit."""
+    merged = [0]
+    for b in range(len(bstart) - 1):
+        if bstart[b + 1] - merged[-1] > BLOCK:
+            merged.append(bstart[b])
+    merged.append(int(bstart[-1]))
+    bstart = np.asarray(merged)
+    nb = len(bstart) - 1
+    slots = np.full((nb * BLOCK,), -1, np.int64)
+    n_refs = int(bstart[-1])
+    lens = bstart[1:] - bstart[:-1]
+    block_of = np.repeat(np.arange(nb), lens)
+    pos_in_block = np.arange(n_refs) - np.repeat(bstart[:-1], lens)
+    slots[block_of * BLOCK + pos_in_block] = np.arange(n_refs)
+    filled = slots >= 0
+    src = np.clip(slots, 0, None)  # reference index per slot
+    t_of = ref_tri[src]  # local triangle index per slot
+    p0 = np.where(filled[:, None], pos[tri_idx[t_of, 0]], 0.0)
+    p1 = np.where(filled[:, None], pos[tri_idx[t_of, 1]], 0.0)
+    p2 = np.where(filled[:, None], pos[tri_idx[t_of, 2]], 0.0)
+    slot_ids = np.where(filled, prim_ids[t_of], -1).astype(np.int32)
+    n = len(slots)
+
+    nt = max(BLOCK, -(-n // BLOCK) * BLOCK)
+    tri = np.zeros((16, nt), np.float32)
+    tri[0:3, :n] = p0.T
+    tri[3:6, :n] = (p1 - p0).T
+    tri[6:9, :n] = (p2 - p0).T
+
+    nbpad = max(128, -(-nb // 128) * 128)
+    aabb = np.empty((nbpad, 8), np.float32)
+    aabb[:, 0:3] = BIG
+    aabb[:, 3:6] = -BIG
+    aabb[:, 6:8] = 0.0
+    # block boxes from the clipped reference bounds, through the same slot
+    # scatter (padding slots keep the +-BIG identity)
+    rlo = np.full((nb * BLOCK, 3), BIG, np.float32)
+    rhi = np.full((nb * BLOCK, 3), -BIG, np.float32)
+    rlo[filled] = ref_bounds[src[filled], 0:3]
+    rhi[filled] = ref_bounds[src[filled], 3:6]
+    aabb[:nb, 0:3] = rlo.reshape(nb, BLOCK, 3).min(1)
+    aabb[:nb, 3:6] = rhi.reshape(nb, BLOCK, 3).max(1)
+    empty = aabb[:, 0] > aabb[:, 3]
+    aabb[empty, 0:6] = np.nan
+
+    slot_prim = np.full((nt,), -1, np.int32)
+    slot_prim[:n] = slot_ids
+    bounds = np.stack([ref_bounds[:, 0:3].min(0), ref_bounds[:, 3:6].max(0)]).astype(np.float32)
+    return _accel(tri, aabb, slot_prim, bounds, nb, "sbvh", device)
+
+
+def _nan_reduce(boxes: torch.Tensor, lo: bool) -> torch.Tensor:
+    """``jnp.nanmin`` (``lo``) or ``jnp.nanmax`` over axis 1 of (C, 128, 3)
+    boxes: NaN (empty) boxes are skipped, and a chunk with no other box
+    stays NaN.  torch's own min/max would propagate the NaN instead."""
+    nan = torch.isnan(boxes)
+    fill = float("inf") if lo else float("-inf")
+    out = torch.where(nan, fill, boxes)
+    out = out.amin(dim=1) if lo else out.amax(dim=1)
+    return torch.where(nan.all(dim=1), float("nan"), out)
+
+
+def chunk_union(aabb: torch.Tensor) -> torch.Tensor:
+    """(NBpad//128, 8) union box per 128-box cull chunk of (NBpad, 8)
+    boxes, in torch ops on the boxes' device.  All-empty chunks stay
+    NaN-poisoned (slab comparisons false -> chunk skipped)."""
+    ch = aabb.reshape(-1, 128, 8)
+    pad = torch.zeros((ch.shape[0], 2), dtype=aabb.dtype, device=aabb.device)
+    return torch.cat([_nan_reduce(ch[:, :, 0:3], True), _nan_reduce(ch[:, :, 3:6], False),
+                      pad], dim=1)
+
+
+def refit_blocked(accel: BlockedAccel, geom: Geometry) -> BlockedAccel:
+    """Refit for edits that move vertices but keep the faces: the build's
+    block decomposition (``slot_prim``, ``num_blocks``) stays, and the
+    triangle rows, block boxes (NaN where a block is empty), chunk boxes
+    and scene bounds are recomputed from the current positions (the JAX
+    package's ``refit_blocked``).  Torch ops on the geometry's device with
+    no host round trip, so an animated frame makes no host sync.  The
+    operations are gathers, subtractions and min/max, so the tables equal
+    the JAX package's, and a card's a CPU's, bit for bit.  An SBVH accel's
+    refitted blocks are bounded by whole-triangle boxes (the clipped
+    reference bounds cannot be recomputed here): looser, still correct.
+    Rebuild when the faces change."""
+    nt, nb = accel.num_slots, accel.num_blocks
+    nbpad = accel.aabb.shape[0]
+    slot = accel.slot_prim.long()
+    filled = (slot >= 0)[:, None]
+    tri_idx = take_clip(geom.indices, slot.clamp_min(0))  # (NT, 3)
+    p0, p1, p2 = (take_clip(geom.positions, tri_idx[:, k]) for k in range(3))
+    p0 = torch.where(filled, p0, 0.0)
+    e1 = torch.where(filled, p1 - p0, 0.0)
+    e2 = torch.where(filled, p2 - p0, 0.0)
+    dev = p0.device
+    tri = torch.cat([p0.T, e1.T, e2.T, torch.zeros((7, nt), dtype=torch.float32, device=dev)])
+
+    pmin = torch.where(filled, torch.minimum(torch.minimum(p0, p1), p2), BIG)
+    pmax = torch.where(filled, torch.maximum(torch.maximum(p0, p1), p2), -BIG)
+    blo = pmin.reshape(nb, BLOCK, 3).amin(dim=1)
+    bhi = pmax.reshape(nb, BLOCK, 3).amax(dim=1)
+    empty = (blo[:, 0] > bhi[:, 0])[:, None]
+    nan = float("nan")
+    rows = torch.cat([torch.where(empty, nan, blo), torch.where(empty, nan, bhi),
+                      torch.zeros((nb, 2), dtype=torch.float32, device=dev)], dim=1)
+    pad = torch.full((nbpad - nb, 8), nan, dtype=torch.float32, device=dev)
+    pad[:, 6:8] = 0.0
+    aabb = torch.cat([rows, pad])
+    bounds = torch.stack([pmin.amin(dim=0), pmax.amax(dim=0)])
+    return accel.replace(tri=tri, aabb=aabb, chunk_aabb=chunk_union(aabb), bounds=bounds)
 
 
 # --------------------------------------------------------------------------

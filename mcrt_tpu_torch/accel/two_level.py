@@ -21,8 +21,11 @@ package's numpy code, so both packages build identical tables.  Beside
 each kernel is its plain PyTorch version (``closest2_plain``,
 ``occluded2_plain``), taken only for CPU tensors.  A hit reports the
 instance's shape id (identity instances of free geometry report -1, and
-the hit's shape then comes from the face table).  (Refit of instance
-transforms waits for the dynamic-scenes slice.)
+the hit's shape then comes from the face table).  ``refit_two_level``
+and ``refit_two_level_scene`` move the instances without a rebuild: they
+keep the BLAS and the pair decomposition and recompute, in torch ops on
+the accel's device, the instance matrices, the world rows ``tw_rows`` the
+walks read and the pair boxes.
 """
 from __future__ import annotations
 
@@ -31,12 +34,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.math import inverse3
 from ..core.types import F32_MAX, Hit, Rays, TensorRecord
 from ..scene.scene import Geometry, take_clip
 from . import kernels
-from .blocked import (BLOCK, GROUP, TILE, BlockedAccel, _chunk_bounds,
-                      _kernel_or_plain, _sorted_table, _unsort, _walk_plain,
-                      build_blocked, cull_plain, lists_from_keys)
+from .blocked import (BIG, BLOCK, GROUP, TILE, BlockedAccel, _kernel_or_plain, _sorted_table,
+                      _unsort, _walk_plain, build_blocked, chunk_union, cull_plain,
+                      lists_from_keys)
 
 INST_BITS = 12  # pair code = (block << INST_BITS) | instance
 MAX_INSTANCES = 1 << INST_BITS
@@ -81,11 +85,13 @@ def _accel(blas, tw, shape_ids, plo, phi, code, device) -> TwoLevelAccel:
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
+    pair_aabb = dev(pair_aabb)
+
     return TwoLevelAccel(
         blas=blas, world_to_object=dev(np.linalg.inv(tw).astype(np.float32)),
         tw_rows=dev(tw[:, :3, :4].reshape(-1)),
         shape_id=dev(np.asarray(shape_ids, np.int32)),
-        pair_aabb=dev(pair_aabb), pair_chunk=dev(_chunk_bounds(pair_aabb)),
+        pair_aabb=pair_aabb, pair_chunk=chunk_union(pair_aabb),
         pair_code=dev(pair_code),
         bounds=dev(np.stack([plo.min(0), phi.max(0)]).astype(np.float32)),
         num_instances=n_inst, num_pairs=plo.shape[0])
@@ -208,12 +214,68 @@ def build_two_level_scene(geom: Geometry, shape_to_world, instances,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    aabb = dev(aabb)
     merged = BlockedAccel(
-        tri=dev(tri), aabb=dev(aabb), slot_prim=dev(slot_prim),
+        tri=dev(tri), aabb=aabb, slot_prim=dev(slot_prim),
         bounds=dev(np.stack([plo.min(0), phi.max(0)])),
-        chunk_aabb=dev(_chunk_bounds(aabb)), num_blocks=off,
+        chunk_aabb=chunk_union(aabb), num_blocks=off,
         builder=blas_list[0][1].builder)
     return _accel(merged, tw_inst, inst_sid, plo, phi, code, device)
+
+
+def affine_inverse(m: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) inverses of affine transforms (last row 0 0 0 1):
+    ``R^-1`` by ``inverse3`` and the translation ``-R^-1 t``.  The
+    two-level engine reads only the 3x4 part of a transform, as the kernels
+    do, so instance transforms are affine."""
+    inv = inverse3(m[..., :3, :3])
+    t = m[..., :3, 3]
+    t_inv = -(inv[..., 0] * t[..., 0:1] + inv[..., 1] * t[..., 1:2] + inv[..., 2] * t[..., 2:3])
+    bottom = torch.zeros_like(m[..., 3:, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([torch.cat([inv, t_inv[..., None]], dim=-1), bottom], dim=-2)
+
+
+def refit_two_level(accel: TwoLevelAccel, to_world: torch.Tensor) -> TwoLevelAccel:
+    """Instance-transform refit: new world-to-object matrices, world rows
+    ``tw_rows`` (which K6/K7 read: without them a frame would show the old
+    poses), pair boxes, chunk boxes and bounds from new (I, 4, 4)
+    transforms, keeping the BLAS and the pair decomposition (the JAX
+    package's ``refit_two_level``).  A pair's box is the union of its
+    object-space block box's 8 corners under the instance's transform,
+    each corner ``((r0 x + r1 y) + r2 z) + t`` without fused multiply-add,
+    so the card and the CPU give the same bits."""
+    tw = to_world.to(device=accel.pair_code.device, dtype=torch.float32)
+    code = accel.pair_code.long()
+    ppad = code.shape[0]
+    valid = (torch.arange(ppad, device=code.device) < accel.num_pairs)[:, None]
+    ob = accel.blas.aabb[code >> INST_BITS]  # (P, 8) object-space block boxes
+    m = tw[code & (MAX_INSTANCES - 1)]  # (P, 4, 4)
+    k = torch.arange(8, device=code.device)[:, None]
+    upper = ((k >> (2 - torch.arange(3, device=code.device))) & 1).bool()  # (8, 3) corner bits
+    corners = torch.where(upper, ob[:, None, 3:6], ob[:, None, 0:3])  # (P, 8, 3)
+    prod = m[:, None, :3, :3] * corners[:, :, None, :]  # (P, 8, 3 rows, 3)
+    wc = prod[..., 0] + prod[..., 1] + prod[..., 2] + m[:, None, :3, 3]  # (P, 8, 3)
+    plo, phi = wc.amin(dim=1), wc.amax(dim=1)
+    nan = float("nan")
+    pair_aabb = torch.cat([torch.where(valid, plo, nan), torch.where(valid, phi, nan),
+                           torch.zeros((ppad, 2), dtype=torch.float32, device=code.device)],
+                          dim=1)
+    bounds = torch.stack([torch.where(valid, plo, BIG).amin(dim=0),
+                          torch.where(valid, phi, -BIG).amax(dim=0)])
+    return accel.replace(world_to_object=affine_inverse(tw),
+                         tw_rows=tw[:, :3, :4].reshape(-1), pair_aabb=pair_aabb,
+                         pair_chunk=chunk_union(pair_aabb), bounds=bounds)
+
+
+def refit_two_level_scene(accel: TwoLevelAccel, scene) -> TwoLevelAccel:
+    """Refit after instance-transform edits of a scene: each instance's
+    transform is gathered from ``scene.shapes.to_world`` (the identity
+    instances of free geometry and source meshes stay fixed)."""
+    sid = accel.shape_id.long()
+    live = take_clip(scene.shapes.to_world, sid.clamp_min(0))
+    ident = torch.eye(4, dtype=torch.float32, device=live.device)
+    return refit_two_level(accel, torch.where((sid >= 0)[:, None, None], live, ident))
 
 
 # --------------------------------------------------------------------------

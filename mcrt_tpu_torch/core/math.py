@@ -148,3 +148,15 @@ def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
 def distance_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = a - b
     return torch.sum(d * d, dim=-1)
+
+
+def inverse3(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) inverses: the adjugate (transposed cofactors) over the
+    determinant, in elementwise ops, so on the card it needs no solver and
+    makes no host sync."""
+    c = [[m[..., (i + 1) % 3, (j + 1) % 3] * m[..., (i + 2) % 3, (j + 2) % 3]
+          - m[..., (i + 1) % 3, (j + 2) % 3] * m[..., (i + 2) % 3, (j + 1) % 3]
+          for j in range(3)] for i in range(3)]  # cofactors
+    det = m[..., 0, 0] * c[0][0] + m[..., 0, 1] * c[0][1] + m[..., 0, 2] * c[0][2]
+    return torch.stack([torch.stack([c[j][i] / det for j in range(3)], -1)
+                        for i in range(3)], -2)

@@ -143,6 +143,34 @@ class Renderer:
         self.accum = self.accum.reset()
         self._render_start = None
 
+    def update_scene(self, scene: Scene):
+        """Swap in an edited scene, refit or rebuild the accel, and reset
+        the accumulation.  The edit is read from tensor identity, as in
+        the JAX package: a scene that shares the current ``indices`` and
+        ``face_valid`` tensors (``SceneAnimator.transformed``,
+        ``Scene.replace``) has moved vertices over the same faces, so a
+        blocked accel is refitted (``refit_blocked``); a two-level accel is
+        refitted when the ``positions`` are shared too, an instance-only
+        edit (``set_shape_transform``, ``refit_two_level_scene``); any
+        other edit rebuilds on the host.  A refit runs on the scene's
+        device and makes no host sync."""
+        from .accel import blocked_intersector, two_level_intersector
+        from .accel.blocked import BlockedAccel, refit_blocked
+        from .accel.two_level import TwoLevelAccel, refit_two_level_scene
+
+        old, scene = self.scene.geometry, scene.to(self.device)  # keeps tensors on the device
+        self.scene = scene
+        acc, geom = self.intersector.accel, scene.geometry
+        same_faces = geom.indices is old.indices and geom.face_valid is old.face_valid
+        if isinstance(acc, BlockedAccel) and same_faces:
+            self.intersector = blocked_intersector(refit_blocked(acc, geom))
+        elif (isinstance(acc, TwoLevelAccel) and same_faces
+              and geom.positions is old.positions):
+            self.intersector = two_level_intersector(refit_two_level_scene(acc, scene))
+        else:
+            self.intersector = build_intersector(scene, self.cfg)
+        self.reset()
+
     def update_camera(self, camera: PinholeCamera):
         self.camera = camera.to(self.device)
         self.reset()

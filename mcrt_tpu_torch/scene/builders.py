@@ -4,12 +4,16 @@ and no-bake instancing, quad / box / icosphere primitives, the offline demo
 scenes (``cornell_box``, ``glass_gallery``, the textured ``textured_hall``,
 the instanced ``instanced_boxes``) and ``sphere_field`` with its instanced
 form ``sphere_field_instanced``, the large stand-in scenes of the
-main-path runs.  The numpy code of the demo scenes is the JAX package's, so
-both packages build identical scenes.  Every builder puts its scene on the
-CUDA card unless the caller names another ``device``.
+main-path runs, and ``scene_from_obj``, a scene loaded from an OBJ file
+with its MTL materials and texture files.  The numpy code of the scenes is
+the JAX package's, so both packages build identical scenes.  Every builder
+puts its scene on the CUDA card unless the caller names another
+``device``.
 
-Not ported yet (ROADMAP): OBJ-based scenes."""
+Not ported yet (ROADMAP): the builders of ``bunny.obj`` scenes."""
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -205,6 +209,74 @@ def cornell_box(light_intensity=(17.0, 12.0, 4.0), device=None):
     camera = PinholeCamera.look_at(eye=(0.0, 1.0, 3.4), target=(0.0, 1.0, 0.0),
                                    fov_deg=40.0, aspect=1.0, device=device)
     return scene, camera
+
+
+def scene_from_obj(path: str, camera_kw: dict | None = None, device=None):
+    """A Scene from an OBJ file: one shape per OBJ material; materials with
+    a nonzero Ke become triangle-mesh area lights of radiance Ke.  Texture
+    files are decoded into the atlas and wired to the material slots:
+    ``map_Kd`` linearized from sRGB into the diffuse slot, ``map_bump`` read
+    linear into the normal-map slot; a missing file leaves the slot empty.
+    The camera looks at the mesh's box unless ``camera_kw`` says
+    otherwise."""
+    from .objloader import load_obj
+    from .textures import load_texture_image
+
+    device = default_device(device)
+    mesh = load_obj(path)
+
+    sb = SceneBuffers()
+    materials = [m.to_uber() for m in mesh.materials]
+    base_dir = os.path.dirname(os.path.abspath(path))
+    atlas_builder: AtlasBuilder | None = None
+    tex_cache: dict[tuple, int] = {}
+    for mid, om in enumerate(mesh.materials):
+        for attr, slot, srgb in (("map_kd", TEX_DIFFUSE, True),
+                                 ("map_bump", TEX_NORMAL, False)):
+            rel = getattr(om, attr, None)
+            if not rel:
+                continue
+            key = (rel, srgb)
+            if key not in tex_cache:
+                img = load_texture_image(os.path.join(base_dir, rel), srgb=srgb)
+                if img is None:
+                    tex_cache[key] = -1
+                else:
+                    if atlas_builder is None:
+                        atlas_builder = AtlasBuilder()
+                    tex_cache[key] = atlas_builder.add(img)
+            if tex_cache[key] >= 0:
+                materials[mid].tex[slot] = tex_cache[key]
+    textures = atlas_builder.build() if atlas_builder is not None else None
+    host_lights: list[dict] = []
+    for mid in range(len(mesh.materials)):  # one shape per material group
+        sel = mesh.face_material == mid
+        if not sel.any():
+            continue
+        tri = mesh.indices[sel]
+        used, inv = np.unique(tri.reshape(-1), return_inverse=True)
+        light_id = -1
+        ke = np.asarray(mesh.materials[mid].ke, np.float32)
+        if ke.sum() > 0:
+            light_id = len(host_lights)
+        sid = sb.add_mesh(mesh.positions[used], inv.reshape(-1, 3).astype(np.int32), mid,
+                          normals=mesh.normals[used], uvs=mesh.uvs[used], light_id=light_id)
+        if light_id >= 0:
+            host_lights.append({"type": LIGHT_MESH, "intensity": ke, "shape": sid})
+
+    positions, normals, uvs, indices, face_shape, shape_mat, shape_light = sb.concat()
+    lights = make_lights(host_lights, positions, indices, face_shape, device=device)
+    scene = build_scene(positions, normals, uvs, indices, face_shape, shape_mat, materials,
+                        lights=lights, shape_light=shape_light, textures=textures,
+                        device=device)
+    lo, hi = positions.min(0), positions.max(0)
+    center = (lo + hi) / 2
+    size = float(np.linalg.norm(hi - lo))
+    kw = dict(eye=center + np.asarray([0.0, 0.25 * size, 0.9 * size]), target=center,
+              fov_deg=45.0, aspect=1.0)
+    if camera_kw:
+        kw.update(camera_kw)
+    return scene, PinholeCamera.look_at(**kw, device=device)
 
 
 def icosphere(center, radius: float, subdiv: int = 2):

@@ -5,10 +5,16 @@ Every texture and its mip chain live in one transposed ``(4, TEXELS)``
 uint8 buffer with a descriptor row per [mip level, texture], so a fetch is
 a gather; nearest, bilinear and trilinear fetches with four wrap modes.
 All formats are RGBA8.  ``AtlasBuilder`` is the JAX package's numpy code,
-so both packages build identical tables.  (Decoding image files waits for
-OBJ import.)
+so both packages build identical tables.  ``load_texture_image`` reads a
+texture file for it; PNG is decoded here with the standard library
+(``zlib`` and ``struct``), so the same bytes come out on every machine,
+whether or not it has an imaging library.
 """
 from __future__ import annotations
+
+import os
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -79,6 +85,108 @@ class AtlasBuilder:
         return TextureAtlas(data=t(data.T), offset=t(mips[:, :, 0].T),
                             width=t(mips[:, :, 1].T), height=t(mips[:, :, 2].T),
                             mips=t(descs[:, 3]), wrap=t(descs[:, 4]))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type (grey, RGB, RGBA) -> samples a pixel
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """(height, stride) uint8 scanlines from PNG's filtered stream: each
+    line is a filter-type byte (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)
+    and ``stride`` bytes filtered against the line before and the pixel
+    ``bpp`` bytes to the left."""
+    if len(raw) != height * (stride + 1):
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, expected "
+                         f"{height * (stride + 1)}")
+    lines = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prior = np.zeros((stride,), np.uint8)
+    for y in range(height):
+        kind, cur = int(lines[y, 0]), lines[y, 1:]
+        if kind == 0:
+            row = cur.copy()
+        elif kind == 1:  # Sub: a running sum, modulo 256, of each byte lane
+            lanes = np.zeros((-(-stride // bpp) * bpp,), np.int64)
+            lanes[:stride] = cur
+            row = (np.cumsum(lanes.reshape(-1, bpp), axis=0) % 256).astype(np.uint8)
+            row = row.reshape(-1)[:stride]
+        elif kind == 2:  # Up
+            row = (cur.astype(np.int64) + prior).astype(np.uint8)
+        elif kind in (3, 4):  # Average, Paeth: left to right
+            r, up = bytearray(stride), prior.tobytes()
+            for i, v in enumerate(cur.tobytes()):
+                a = r[i - bpp] if i >= bpp else 0
+                c = up[i - bpp] if i >= bpp else 0
+                pred = (a + up[i]) >> 1 if kind == 3 else _paeth(a, up[i], c)
+                r[i] = (v + pred) & 0xFF
+            row = np.frombuffer(bytes(r), np.uint8)
+        else:
+            raise ValueError(f"PNG scanline {y} has unknown filter type {kind}")
+        out[y] = row
+        prior = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """(H, W, 4) uint8 RGBA of an 8-bit, non-interlaced grey, RGB or RGBA
+    PNG, top row first, as ``PIL.Image.convert("RGBA")`` gives it (grey
+    replicated, alpha 255 where the file has none).  Anything else raises
+    ``ValueError``."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length:
+            raise ValueError("truncated PNG chunk")
+        pos += 12 + length  # length, type, body, CRC
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError("PNG without IHDR or image data")
+    width, height, depth, colour, _, _, interlace = header
+    if depth != 8 or colour not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {colour}, "
+                         f"interlace {interlace} (8-bit grey, RGB or RGBA, non-interlaced)")
+    ch = _PNG_CHANNELS[colour]
+    px = _unfilter(zlib.decompress(b"".join(idat)), height, width * ch, ch)
+    px = px.reshape(height, width, ch)
+    if colour == 6:
+        return px
+    rgb = np.repeat(px, 3, axis=-1) if colour == 0 else px
+    return np.concatenate([rgb, np.full((height, width, 1), 255, np.uint8)], axis=-1)
+
+
+def load_texture_image(path: str, srgb: bool = False) -> np.ndarray | None:
+    """An image file as an (H, W, 4) uint8 RGBA array for
+    ``AtlasBuilder.add``, rows flipped so OBJ's bottom-up ``vt`` lands on
+    row 0.  ``srgb=True`` linearizes the colour channels (``map_Kd`` colour
+    maps are authored in sRGB; radiance math is linear).  A missing file
+    gives None (the material then keeps its constant colour, as in the JAX
+    package); a file that is not a PNG this decoder reads raises."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        arr = decode_png(f.read())
+    arr = np.flipud(arr).copy()
+    if srgb:
+        lin = (arr[..., :3].astype(np.float32) / 255.0) ** 2.2
+        arr = np.concatenate([(lin * 255.0 + 0.5).astype(np.uint8), arr[..., 3:]], axis=-1)
+    return arr
 
 
 def _wrap_coord(x: torch.Tensor, n: torch.Tensor, mode: torch.Tensor) -> torch.Tensor:

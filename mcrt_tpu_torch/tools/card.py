@@ -14,6 +14,9 @@ import torch
 # About a millisecond at the H100's clocks: far longer than the host takes
 # to enqueue one call of a kernel's wrapper (tens of microseconds).
 SPIN_CYCLES = 2_000_000
+# A call whose host side outlasts that spin (a chain of many small torch
+# ops) is timed behind a spin doubled up to this, about 128 ms.
+MAX_SPIN_CYCLES = 128 * SPIN_CYCLES
 
 
 def smi_id() -> str:
@@ -39,18 +42,29 @@ def device_timed(fn, reps: int):
     ctypes call), which is longer than a small kernel.  So each window is
     queued behind a spin on the card: by the time the spin ends, the host
     has enqueued the start event, the call's launches and the end event,
-    and the window holds the card's time for the call alone."""
-    times, out = [], None
-    for _ in range(reps):
+    and the window holds the card's time for the call alone.  Whether it
+    did is checked: if the start event has fired by the time the end event
+    is queued, the card caught up with the host, and the call is timed
+    again behind a spin twice as long, up to ``MAX_SPIN_CYCLES``.  A call
+    that outlasts even that (one that waits for the card) raises."""
+    times, out, spin = [], None, SPIN_CYCLES
+    while len(times) < reps:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         out = fn()
         end.record()
+        covered = not start.query()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        if covered:
+            times.append(start.elapsed_time(end))
+        elif spin < MAX_SPIN_CYCLES:
+            spin *= 2
+        else:
+            raise RuntimeError(f"the host took longer to queue the call than a spin of "
+                               f"{MAX_SPIN_CYCLES} cycles: does it wait for the card?")
     return statistics.median(times), times, out
 
 

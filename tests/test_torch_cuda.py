@@ -518,6 +518,124 @@ def test_cuda_render_matches_cpu_render(cuda_device):
     assert close.float().mean().item() >= 0.99
 
 
+def _soup(n_tris, seed, device):
+    """A soup of small random triangles (``tests/test_lbvh.py``'s recipe):
+    its SBVH decomposition references some triangles from two blocks."""
+    from mcrt_tpu_torch.scene.scene import UberMaterial, build_scene
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-1, 1, (n_tris, 3)).astype(np.float32)
+    offs = rng.normal(scale=0.08, size=(n_tris, 3, 3)).astype(np.float32)
+    pos = (centers[:, None, :] + offs).reshape(-1, 3)
+    nrm = np.tile(np.asarray([[0, 1, 0]], np.float32), (len(pos), 1))
+    return build_scene(pos, nrm, np.zeros((len(pos), 2), np.float32),
+                       np.arange(n_tris * 3, dtype=np.int32).reshape(-1, 3),
+                       np.zeros((n_tris,), np.int32), np.asarray([0]),
+                       [UberMaterial(diffuse=(0.5, 0.5, 0.5))], device=device)
+
+
+def _moved(scene, shape):
+    """``scene`` with shape ``shape`` moved and turned (``SceneAnimator``)."""
+    from mcrt_tpu_torch.scene.dynamic import SceneAnimator, rotation_y, translation
+
+    return SceneAnimator.create(scene).set_transform(
+        shape, translation((0.3, 0.1, -0.2)) @ rotation_y(0.7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["sbvh", "refit"])
+def test_sbvh_and_refitted_walks_match_plain_versions(cuda_device, table):
+    """K1 equal to its plain version and K2/K3 within the walks' tolerance
+    on tables the builds never made before refit and SBVH: SBVH blocks of a
+    2,000-triangle soup (duplicated references, clipped boxes) and the SAH
+    blocks of ``glass_gallery`` refitted after a shape moved."""
+    from mcrt_tpu_torch.config import BuilderType, BVHConfig
+
+    if table == "sbvh":
+        scene = _soup(2000, 11, cuda_device)
+        acc = tb.build_blocked(scene.geometry, BVHConfig(builder=BuilderType.SBVH))
+        slots = acc.slot_prim[acc.slot_prim >= 0]
+        assert acc.builder == "sbvh" and slots.unique().numel() < slots.numel()
+    else:
+        scene, _ = glass_gallery(device=cuda_device)
+        moved = _moved(scene, 1)
+        acc = tb.refit_blocked(tb.build_blocked(scene.geometry), moved.geometry)
+    rays = _rays(8000, seed=5, device=cuda_device)
+    rays = rays.replace(o=rays.o * 0.5)  # inside the soup's box too
+    packed, _ = tb._sorted_table(rays, acc, True)
+    keys = kernels.cull(packed, acc.chunk_aabb, acc.aabb, tb.TILE)
+    assert torch.equal(keys, tb.cull_plain(packed, acc.chunk_aabb, acc.aabb, tb.TILE))
+    counts, lists, tn = tb.lists_from_keys(keys)
+    allowed = _walk_allowed(packed)
+    out = kernels.closest(counts, packed, lists, tn, acc.tri, acc.aabb, tb.TILE, tb.GROUP)
+    plain = tb.closest_plain(counts, packed, lists, tn, acc.tri, tb.TILE, tb.GROUP)
+    assert _closest_differing(out, plain) <= allowed
+    b_k = kernels.occluded(counts, packed, lists, acc.tri, acc.aabb, tb.TILE, tb.GROUP)
+    b_p = tb.occluded_plain(counts, packed, lists, acc.tri, tb.TILE, tb.GROUP)
+    assert int((b_k != b_p).sum()) <= allowed
+    assert int((out[1] >= 0).sum()) > 100 and int(b_k.sum()) > 100
+
+
+def _nan_equal(a, b) -> bool:
+    return torch.equal(torch.nan_to_num(a.cpu(), nan=7.0), torch.nan_to_num(b.cpu(), nan=7.0))
+
+
+@pytest.mark.cuda
+def test_card_refit_equals_cpu_refit(cuda_device):
+    """``refit_blocked`` and ``refit_two_level_scene`` on the card equal the
+    same refits of the same inputs on the CPU, bit for bit: gathers,
+    subtractions, min/max and products without fused multiply-add."""
+    from mcrt_tpu_torch.scene.dynamic import rotation_y, set_shape_transform, translation
+
+    scene, _ = glass_gallery(device=cuda_device)
+    moved = _moved(scene, 1)
+    acc = tb.build_blocked(scene.geometry)
+    card = tb.refit_blocked(acc, moved.geometry)
+    cpu = tb.refit_blocked(acc.to("cpu"), moved.geometry.to("cpu"))
+    for k in ("tri", "aabb", "slot_prim", "bounds", "chunk_aabb"):
+        assert _nan_equal(getattr(card, k), getattr(cpu, k)), k
+    scene, _ = instanced_boxes(3, device=cuda_device)
+    acc = ttl.build_two_level_scene(scene.geometry, scene.shapes.to_world, scene.instances)
+    moved = set_shape_transform(scene, int(scene.instances.shape[2].item()),
+                                translation((0.5, 0.2, -0.3)) @ rotation_y(1.1))
+    card = ttl.refit_two_level_scene(acc, moved)
+    cpu = ttl.refit_two_level_scene(acc.to("cpu"), moved.to("cpu"))
+    for k in ("world_to_object", "tw_rows", "pair_aabb", "pair_chunk", "bounds"):
+        assert _nan_equal(getattr(card, k), getattr(cpu, k)), k
+
+
+@pytest.mark.cuda
+def test_animated_frame_makes_no_host_sync(cuda_device):
+    """A frame of ``make_animated_frame`` (transform from a host array,
+    refit, render) under torch's CUDA sync debug mode "error": no
+    synchronizing call; then ``Scene.to`` and a ``Renderer`` on the
+    default device keep the card's tensors, as ``update_scene`` needs."""
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.config import IntegratorConfig, RenderConfig
+    from mcrt_tpu_torch.film.accumulate import Accumulator
+    from mcrt_tpu_torch.scene.dynamic import SceneAnimator, make_animated_frame, rotation_y
+
+    scene, camera = glass_gallery(device=cuda_device)
+    cfg = RenderConfig(width=64, height=64, integrator=IntegratorConfig(max_depth=3))
+    anim = SceneAnimator.create(scene)
+    frame_fn = make_animated_frame(anim, camera, cfg)
+    accum = Accumulator.zeros(cfg.width, cfg.height, cuda_device)
+    t = anim.identity_transforms()
+    _, accum = frame_fn(t, accum, 0)  # warm-up
+    t[1] = rotation_y(0.5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moved, accum = frame_fn(t, accum, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert accum.frame == 2 and bool(torch.isfinite(accum.image).all())
+    again = moved.to(torch.device("cuda"))
+    assert again.geometry.indices is scene.geometry.indices
+    assert again.geometry.positions is moved.geometry.positions
+    assert Renderer(moved, camera, cfg).scene.geometry.positions is moved.geometry.positions
+
+
 @pytest.mark.parametrize("isolated", [False, True])
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, isolated):
     """With no CUDA device, and in a directory holding only the script,

@@ -220,7 +220,6 @@ def test_progressive_controls():
     (dict(tonemap=ToneMapConfig(enabled=True)), "tonemap"),
     (dict(accel=AccelType.BRUTE), "not ported"),
     (dict(accel=AccelType.LBVH), "not ported"),
-    (dict(bvh=BVHConfig(builder=BuilderType.SBVH)), "SBVH"),
     (dict(denoise=DenoiseConfig(enabled=True)), "denoise"),
 ])
 def test_unported_options_raise(change, match):
@@ -228,6 +227,35 @@ def test_unported_options_raise(change, match):
     with pytest.raises(NotImplementedError, match=match):
         Renderer(scene, cam, RenderConfig(width=8, height=8, **change),
                  device="cpu").render(1)
+
+
+def test_render_spp_batch_refuses_a_mesh():
+    """Sharding over a device mesh is not ported: ``render_spp_batch`` with
+    a mesh raises, naming the roadmap's multi-GPU item."""
+    from mcrt_tpu_torch.accel import build_intersector
+    from mcrt_tpu_torch.parallel.render import render_spp_batch
+
+    scene, cam = tbuild.cornell_box(device="cpu")
+    cfg = RenderConfig(width=8, height=8)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        render_spp_batch(scene, cam, [0, 1], cfg, build_intersector(scene, cfg), mesh=object())
+
+
+def test_sbvh_render_agrees_with_sah_render():
+    """``BuilderType.SBVH`` (the spatial-split blocks) renders
+    ``cornell_box`` as SAH blocks do: at least 99% of pixels agree after
+    one sample, and the accel says which builder ran."""
+    scene, cam = tbuild.cornell_box(device="cpu")
+    imgs = {}
+    for builder in (BuilderType.SAH, BuilderType.SBVH):
+        r = Renderer(scene, cam, RenderConfig(width=SIZE, height=SIZE, spp=1,
+                                              bvh=BVHConfig(builder=builder),
+                                              integrator=IntegratorConfig(max_depth=DEPTH)),
+                     device="cpu")
+        assert r.intersector.accel.builder == builder.value
+        imgs[builder] = r.render().numpy()
+    assert _agreement(imgs[BuilderType.SBVH], imgs[BuilderType.SAH]) >= MIN_AGREE
+    assert imgs[BuilderType.SBVH].mean() > 0.0
 
 
 def test_entry_points_default_to_the_card():
