@@ -114,6 +114,33 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    of 0.02 mean-relative error; then a 512x512 main-path run as in phase
    4).  Images agree at the parity share (99% of pixels within rtol 1e-3
    / atol 1e-4).
+6. BDPT, through ``Renderer`` with ``IntegratorType.BDPT``,
+   Sobol, SAH blocks and ``AUTO``, each path as in phase 4 (launch counters
+   around it, every frame printed, the median as ms/spp, a frame under the
+   sync check, a finite image with a positive mean, peak memory) and with
+   the queries of a sample printed: closest-hit queries, occlusion queries
+   (the chunks of at most ``MCRT_BDPT_OCC_RAYS`` = 2^21 rays) and the
+   shadow rays they stage.  ``[bdpt]``: ``sphere_field`` at 512x512, depth
+   8 (K1-K3 and none of K4-K7); ``[bdpt_128]``: the same at 128x128, depth
+   3 (the JAX bench's BDPT configuration); ``[bdpt_dense]``:
+   ``cornell_box`` at 512x512, depth 8 (K4/K5 only); ``[bdpt_instanced]``:
+   ``sphere_field_instanced`` at 512x512, depth 3 (K1, K6, K7 and none of
+   K2-K5).  After the timed frames of each 512x512 path, one frame more
+   for each of its kernels keeps the inputs of every launch and holds each
+   against the plain version, as the kernel phase holds them: K1's keys
+   equal on ``[bdpt]`` and ``[bdpt_instanced]`` (pair boxes); K4/K5's
+   outputs equal on ``[bdpt_dense]``; K2/K3 on ``[bdpt]`` and K6/K7 on
+   ``[bdpt_instanced]`` within the walks' tolerance.  These launches
+   include the light subpath's rays, which start on the light, and the
+   occlusion chunks; one launch of K1, K3, K5 and K7 must be a full chunk
+   of ``MCRT_BDPT_OCC_RAYS`` = 2^21 rays.  ``[bdpt_parity]``:
+   ``cornell_box`` and ``glass_gallery`` at 64x64, depth 3, 1 spp, card
+   against CPU at the parity share.
+   ``[bdpt_converged]``: ``cornell_box`` at 32x16, 512 spp, depth 2, BDPT
+   against the path tracer on the card, mean relative difference outside
+   the emitter under 0.08 (``tests/test_bdpt.py``'s bound); the t=1 splats
+   are float atomics (``index_add_``), so BDPT frames are compared by a
+   share or a converged mean, never by equality.
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
@@ -141,7 +168,7 @@ The second-to-last stdout line is the per-kernel JSON record (``ms``,
 of seven of a main path's eight bounces, K8's float32 chain's and K9's at
 k = 128; ``launches`` are the counts of the main path that runs the
 kernel, ``vpu_bench.main()`` for K8/K9, and ``launches_by_path`` every
-phase's count of phases 4 and 5; each row's ``variants`` map holds
+phase's count of phases 4 to 6; each row's ``variants`` map holds
 every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by`` and ``library_ms``, and for K8 (float32, bfloat16) and K9
 (k=8, k=128) also ``issue_floor_ms`` and ``sm_mhz``), the last one
@@ -154,6 +181,7 @@ import os
 import statistics
 import sys
 import time
+from functools import partial
 
 WIDTH = HEIGHT = 512
 MAX_DEPTH = 8
@@ -169,6 +197,7 @@ WALK_SHARE, WALK_MIN_RAYS = 1e-4, 2  # K2/K3, K6/K7: differing rays allowed (sha
 ANIM_SHAPE, ANIM_FRAMES = 6, 3  # the sphere the animated phases move, and for how many frames
 MIN_CHANGED = 0.002  # least share of pixels a moved sphere must change
 SPP_BATCH = 4  # samples of the render_spp_batch phase
+BDPT_CONVERGED_REL = 0.08  # tests/test_bdpt.py's bound, BDPT against PT at 512 spp
 HERE = os.path.dirname(os.path.abspath(__file__))
 TEXBOX = os.path.join(HERE, "tests", "assets", "texbox.obj")
 TEXBOX_CAMERA = dict(eye=(0.0, 1.0, 2.5), target=(0.0, 0.8, 0.0), fov_deg=50.0)
@@ -642,18 +671,19 @@ def two_level_kernels(res, device):
                    floor_ops=least * visit + staged * OPS_STAGE)
 
 
-def parity_phase(name: str, sampler: str = "SOBOL"):
+def parity_phase(name: str, sampler: str = "SOBOL", integrator: str = "PATH"):
     import torch
 
     from mcrt_tpu_torch import Renderer
-    from mcrt_tpu_torch.config import (IntegratorConfig, RenderConfig,
+    from mcrt_tpu_torch.config import (IntegratorConfig, IntegratorType, RenderConfig,
                                        SamplerConfig, SamplerType)
     from mcrt_tpu_torch.scene import builders
 
     cfg = RenderConfig(width=64, height=64, spp=1,
                        sampler=SamplerConfig(type=SamplerType[sampler]),
-                       integrator=IntegratorConfig(max_depth=3))
+                       integrator=IntegratorConfig(type=IntegratorType[integrator], max_depth=3))
     label = f"{name} ({sampler.lower()})"
+    tag = "bdpt_parity" if integrator == "BDPT" else "parity"
     images = {}
     for dev in ("cuda", "cpu"):
         scene, camera = getattr(builders, name)(device=dev)
@@ -661,10 +691,10 @@ def parity_phase(name: str, sampler: str = "SOBOL"):
         images[dev] = Renderer(scene, camera, cfg, device=dev).render().cpu()
         if dev == "cuda":
             torch.cuda.synchronize()
-        log(f"[parity] {label} 64x64 on {dev}: {time.perf_counter() - t0:.2f} s")
+        log(f"[{tag}] {label} 64x64 on {dev}: {time.perf_counter() - t0:.2f} s")
     close = torch.isclose(images["cuda"], images["cpu"], rtol=1e-3, atol=1e-4).all(dim=-1)
     share = close.float().mean().item()
-    log(f"[parity] {label}: pixels agreeing (rtol 1e-3, atol 1e-4): {share:.4f} "
+    log(f"[{tag}] {label}: pixels agreeing (rtol 1e-3, atol 1e-4): {share:.4f} "
         f"(mismatch {1 - share:.4f}); means {images['cuda'].mean():.5f} / "
         f"{images['cpu'].mean():.5f}")
     if share < PARITY_MIN_SHARE:
@@ -694,10 +724,26 @@ def random_draw_phase(device):
         raise AssertionError("the RANDOM draw on the card differs from the CPU draw")
 
 
-def cull_frame_phase(renderer, label):
+def check_full_chunk(label, k, launches):
+    """Raises unless one of ``k``'s launches in a frame (their ray tables'
+    widths, ``launches``) was a full BDPT occlusion chunk of
+    ``bdpt.OCC_CHUNK_RAYS`` rays: a BDPT path's frame phase holds the kernel
+    against its plain version at that size."""
+    from mcrt_tpu_torch.integrators import bdpt
+
+    largest = max(launches, default=0)
+    log(f"[{label}] {k}: the largest launch of the frame holds {largest} rays "
+        f"(a full occlusion chunk is {bdpt.OCC_CHUNK_RAYS})")
+    if largest < bdpt.OCC_CHUNK_RAYS:
+        raise AssertionError(f"{label}: no launch of {k} in the frame was a full occlusion "
+                             "chunk")
+
+
+def cull_frame_phase(renderer, label, chunk=False):
     """The inputs K1 is handed during one frame of ``renderer``: each
     launch's keys equal to the plain version's; K1's time on each (median
-    of ``KERNEL_REPS``) and its bound, summed over the frame."""
+    of ``KERNEL_REPS``) and its bound, summed over the frame.  With
+    ``chunk``, one launch must have been a full occlusion chunk."""
     import torch
 
     from mcrt_tpu_torch.accel import blocked, kernels
@@ -705,24 +751,28 @@ def cull_frame_phase(renderer, label):
 
     inputs = inputs_of_a_frame(renderer, ["K1"])["K1"]
     total_ms = total_bound = 0.0
-    for packed, chunk, boxes, tile in inputs:
-        ms, _, keys = kernel_timed(lambda: kernels.cull(packed, chunk, boxes, tile), KERNEL_REPS)
-        if not torch.equal(keys, blocked.cull_plain(packed, chunk, boxes, tile)):
+    for packed, chunk_aabb, boxes, tile in inputs:
+        ms, _, keys = kernel_timed(lambda: kernels.cull(packed, chunk_aabb, boxes, tile),
+                                   KERNEL_REPS)
+        if not torch.equal(keys, blocked.cull_plain(packed, chunk_aabb, boxes, tile)):
             raise AssertionError(f"{label}: K1 keys of a frame's launch differ from the "
                                  "plain version")
-        b_ms, _ = bound(blocked.cull_tests(packed, chunk, boxes, tile) * OPS_SLAB,
-                        nbytes(packed, chunk, boxes, keys))
+        b_ms, _ = bound(blocked.cull_tests(packed, chunk_aabb, boxes, tile) * OPS_SLAB,
+                        nbytes(packed, chunk_aabb, boxes, keys))
         total_ms += ms
         total_bound += b_ms
     log(f"[{label}] K1 a frame: {total_ms:.4f} ms, bound {total_bound:.4f} ms, "
         f"{len(inputs)} launches (keys equal to the plain version's on each)")
+    if chunk:
+        check_full_chunk(label, "K1", [a[0].shape[1] for a in inputs])
 
 
-def dense_frame_phase(renderer, label):
+def dense_frame_phase(renderer, label, chunk=False):
     """The inputs K4 and K5 are handed during one frame of ``renderer``:
     each launch's outputs equal to the plain version's (as in the kernel
     phase); the kernels' time on each (median of ``KERNEL_REPS``) and their
-    bound, summed over the frame's launches of both."""
+    bound, summed over the frame's launches of both.  With ``chunk``, one
+    launch of K5 must have been a full occlusion chunk."""
     from mcrt_tpu_torch.accel import blocked, kernels
     from mcrt_tpu_torch.tools.wavefronts import inputs_of_a_frame
 
@@ -751,17 +801,58 @@ def dense_frame_phase(renderer, label):
         f"(K4 {len(inputs['K4'])}, K5 {len(inputs['K5'])}; each equal to the plain version)")
     if not inputs["K4"] or not inputs["K5"]:
         raise AssertionError(f"{label}: a frame launched no K4 or no K5")
+    if chunk:
+        check_full_chunk(label, "K5", [a[0].shape[1] for a in inputs["K5"]])
 
 
-def main_cfg(builder="SAH", spp=MAIN_FRAMES + 3):
-    """The main paths' configuration: 512x512, 8 bounces, Sobol."""
+def walk_frame_phase(renderer, label, ids, chunk):
+    """The inputs the list walks ``ids`` (K2/K3, or K6/K7) are handed
+    during one frame of ``renderer``: each launch against its plain version
+    within the walks' tolerance (``WALK_SHARE``, ``WALK_MIN_RAYS``); the
+    kernels' time on each (median of ``KERNEL_REPS``), summed over the
+    frame.  One launch of ``chunk`` must have been a full occlusion chunk."""
+    from mcrt_tpu_torch.accel import blocked, kernels
+    from mcrt_tpu_torch.accel import two_level as tl
+    from mcrt_tpu_torch.tools.wavefronts import inputs_of_a_frame
+
+    # the plain versions take the kernel's arguments without its entry
+    # boxes, the third from last
+    plain = {"K2": blocked.closest_plain, "K3": blocked.occluded_plain,
+             "K6": tl.closest2_plain, "K7": tl.occluded2_plain}
+    inputs = inputs_of_a_frame(renderer, ids)
+    for k in ids:
+        total_ms = 0.0
+        for i, args in enumerate(inputs[k]):
+            packed = args[1]
+            live = packed[7] > packed[6]
+            ms, _, out = kernel_timed(lambda: kernels.WRAPPERS[k](*args), KERNEL_REPS)
+            ref = plain[k](*args[:-3], *args[-2:])
+            wf = f"{label} frame launch {i}, {packed.shape[1]} rays"
+            if k in ("K2", "K6"):
+                check_walk_closest(k, wf, out, ref, live)
+            else:
+                check_walk_any(k, wf, out, ref, live)
+            total_ms += ms
+        log(f"[{label}] {k} a frame: {total_ms:.4f} ms, {len(inputs[k])} launches (each "
+            "within the walks' tolerance of the plain version)")
+        if not inputs[k]:
+            raise AssertionError(f"{label}: a frame launched no {k}")
+    check_full_chunk(label, chunk, [a[1].shape[1] for a in inputs[chunk]])
+
+
+def main_cfg(builder="SAH", spp=MAIN_FRAMES + 3, integrator="PATH", size=WIDTH,
+             depth=MAX_DEPTH):
+    """The main paths' configuration: 512x512, 8 bounces, Sobol (the BDPT
+    phases change the integrator, and some the size or depth)."""
     from mcrt_tpu_torch.config import (BuilderType, BVHConfig, IntegratorConfig,
-                                       RenderConfig, SamplerConfig, SamplerType)
+                                       IntegratorType, RenderConfig, SamplerConfig,
+                                       SamplerType)
 
-    return RenderConfig(width=WIDTH, height=HEIGHT, spp=spp,
+    return RenderConfig(width=size, height=size, spp=spp,
                         sampler=SamplerConfig(type=SamplerType.SOBOL),
                         bvh=BVHConfig(builder=BuilderType[builder]),
-                        integrator=IntegratorConfig(max_depth=MAX_DEPTH))
+                        integrator=IntegratorConfig(type=IntegratorType[integrator],
+                                                    max_depth=depth))
 
 
 def check_launches(label, counts, expect, forbid):
@@ -793,11 +884,12 @@ def agreement(label, what, a, b, min_share=PARITY_MIN_SHARE):
     return share
 
 
-def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=None,
-                    builder="SAH"):
-    """``Renderer`` on ``scene``: returns (launch counts, ms/spp, rays/s,
-    image mean, image after the timed frames); then ``frame_phase(renderer,
-    label)``, if given, on one more frame."""
+def main_path_phase(label, scene, camera, device, expect, forbid, frame_phases=(),
+                    cfg=None):
+    """``Renderer`` on ``scene`` under ``cfg`` (``main_cfg()`` by default):
+    returns (launch counts, ms/spp, rays/s, image mean, image after the
+    timed frames); then each of ``frame_phases(renderer, label)``, each on
+    one more frame."""
     import torch
 
     from mcrt_tpu_torch import Renderer
@@ -805,7 +897,8 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=No
     from mcrt_tpu_torch.tools.profile_frame import sync_sites
     from mcrt_tpu_torch.tools.card import card_line
 
-    cfg = main_cfg(builder)
+    cfg = cfg or main_cfg()
+    builder = cfg.bvh.builder.name
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     renderer = Renderer(scene, camera, cfg, device=device)
@@ -821,19 +914,23 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=No
 
     kernels.reset_launch_counts()
     # frame 0 counts the rays each query is handed (active lanes), as the
-    # JAX bench counts closest plus shadow rays; it is also the warm-up
+    # JAX bench counts closest plus shadow rays, and the queries and the
+    # rays they stage; it is also the warm-up
     traced = torch.zeros((), dtype=torch.int64, device=device)
+    queries = {"closest": [0, 0, 0], "occlusion": [0, 0, 0]}  # calls, rays, largest call
     base = renderer.intersector
 
-    def counting(fn):
+    def counting(fn, kind):
         def run(s, r):
             nonlocal traced
             traced = traced + r.active.sum()
+            q = queries[kind]
+            q[0], q[1], q[2] = q[0] + 1, q[1] + r.n, max(q[2], r.n)
             return fn(s, r)
         return run
 
-    renderer.intersector = Intersector(counting(base.intersect),
-                                       counting(base.occluded), base.accel)
+    renderer.intersector = Intersector(counting(base.intersect, "closest"),
+                                       counting(base.occluded, "occlusion"), base.accel)
     _, warm, _ = timed(lambda: renderer.step(1), 1)
     renderer.intersector = base
     rays_per_spp = int(traced)
@@ -848,18 +945,62 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phase=No
     mean = img.mean().item()
     if not bool(torch.isfinite(img).all()) or not mean > 0.0:
         raise AssertionError(f"{label}: image not finite/positive (mean {mean})")
-    if tuple(img.shape) != (HEIGHT, WIDTH, 3):
+    if tuple(img.shape) != (cfg.height, cfg.width, 3):
         raise AssertionError(f"{label}: image shape {tuple(img.shape)}")
     check_launches(label, counts, expect, forbid)
     rays_s = rays_per_spp / (ms / 1e3)
-    log(f"[{label}] {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, sobol: {ms:.2f} ms/spp (median of "
+    log(f"[{label}] a sample: {queries['closest'][0]} closest-hit queries of "
+        f"{queries['closest'][1]} rays; {queries['occlusion'][0]} occlusion queries (chunks) of "
+        f"{queries['occlusion'][1]} staged shadow rays, the largest of "
+        f"{queries['occlusion'][2]} rays")
+    log(f"[{label}] {cfg.width}x{cfg.height}, {cfg.integrator.max_depth} bounces, "
+        f"{cfg.integrator.type.name.lower()}, sobol: {ms:.2f} ms/spp (median of "
         f"{MAIN_FRAMES}), {rays_per_spp} rays/spp, {rays_s:.4e} rays/s, "
         f"image mean {mean:.5f}, launches {counts}, "
         f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
         f"card {card_line()}")
-    if frame_phase:
-        frame_phase(renderer, label)
+    for phase in frame_phases:
+        phase(renderer, label)
     return counts, ms, rays_s, mean, img
+
+
+def bdpt_converged_phase(device):
+    """``cornell_box`` at 32x16, 512 spp, max_depth 2 (the default RANDOM
+    sampler), through ``Renderer`` on the card with the path tracer and with
+    BDPT: the mean relative difference outside the directly visible emitter
+    must stay under ``BDPT_CONVERGED_REL``.  A t=1 splat routed to the wrong
+    ray slot (a square film, or pixels out of the Morton order) scrambles
+    whole rows and gives more than 0.5."""
+    import torch
+
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.config import IntegratorConfig, IntegratorType, RenderConfig
+    from mcrt_tpu_torch.scene.builders import cornell_box
+    from mcrt_tpu_torch.tools.card import card_line
+
+    label = "bdpt_converged"
+    w, h, spp = 32, 16, 512
+    scene, camera = cornell_box(device=device)
+    imgs = {}
+    kernels.reset_launch_counts()
+    for ityp in (IntegratorType.PATH, IntegratorType.BDPT):
+        cfg = RenderConfig(width=w, height=h, spp=spp, samples_per_pass=64,
+                           integrator=IntegratorConfig(type=ityp, max_depth=2))
+        ms, _, img = timed(lambda: Renderer(scene, camera, cfg, device=device).render(), 1)
+        imgs[ityp] = img.cpu()
+        log(f"[{label}] {ityp.name.lower()} {w}x{h}, {spp} spp, max_depth 2: {ms:.0f} ms "
+            f"({ms / spp:.2f} ms/spp), mean {img.mean().item():.5f}; card {card_line()}")
+    counts = kernels.launch_counts()
+    check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
+    a, b = imgs[IntegratorType.PATH], imgs[IntegratorType.BDPT]
+    mask = a.amax(-1) < 5.0  # the directly visible emitter
+    rel = ((a - b).abs()[mask].mean() / a[mask].mean()).item()
+    log(f"[{label}] BDPT against the path tracer outside the emitter: mean relative "
+        f"difference {rel:.4f} (bound {BDPT_CONVERGED_REL}), launches {counts}")
+    if not rel < BDPT_CONVERGED_REL or not bool(torch.isfinite(b).all()):
+        raise AssertionError(f"{label}: BDPT departs from the path tracer: {rel:.4f}")
+    return counts
 
 
 def frames_timed(label, frames):
@@ -1121,6 +1262,38 @@ def texbox_phase(device):
     return scene, camera
 
 
+BDPT_PHASES = ("bdpt", "bdpt_128", "bdpt_dense", "bdpt_instanced")
+
+
+def bdpt_phases(scene, camera, device):
+    """BDPT through ``Renderer`` (Sobol, SAH blocks, ``AUTO``) on the three
+    paths: ``sphere_field`` at 512x512, depth 8 (K1-K3), and at 128x128,
+    depth 3; ``cornell_box`` at 512x512, depth 8 (K4/K5);
+    ``sphere_field_instanced`` at 512x512, depth 3 (K1, K6, K7).  After the
+    timed frames of each 512x512 path, one frame more for each of its
+    kernels holds every launch of the kernel against its plain version, a
+    full occlusion chunk of 2^21 rays among them for K1, K3, K5 and K7."""
+    from mcrt_tpu_torch.scene.builders import cornell_box, sphere_field_instanced
+
+    k1_3, k4_5, k6_7 = ("K1", "K2", "K3"), ("K4", "K5"), ("K6", "K7")
+    cull = partial(cull_frame_phase, chunk=True)
+    return {
+        "bdpt": main_path_phase(
+            "bdpt", scene, camera, device, k1_3, k4_5 + k6_7, cfg=main_cfg(integrator="BDPT"),
+            frame_phases=(cull, partial(walk_frame_phase, ids=("K2", "K3"), chunk="K3"))),
+        "bdpt_128": main_path_phase("bdpt_128", scene, camera, device, k1_3, k4_5 + k6_7,
+                                    cfg=main_cfg(integrator="BDPT", size=128, depth=3)),
+        "bdpt_dense": main_path_phase(
+            "bdpt_dense", *cornell_box(device=device), device, k4_5, k1_3 + k6_7,
+            cfg=main_cfg(integrator="BDPT"),
+            frame_phases=(partial(dense_frame_phase, chunk=True),)),
+        "bdpt_instanced": main_path_phase(
+            "bdpt_instanced", *sphere_field_instanced(device=device), device, ("K1",) + k6_7,
+            ("K2", "K3") + k4_5, cfg=main_cfg(integrator="BDPT", depth=3),
+            frame_phases=(cull, partial(walk_frame_phase, ids=k6_7, chunk="K7"))),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1157,14 +1330,14 @@ def main() -> int:
         random_draw_phase(device)
         paths = {
             "main": main_path_phase("main", scene, camera, device, ("K1", "K2", "K3"), (),
-                                    frame_phase=cull_frame_phase),
+                                    frame_phases=(cull_frame_phase,)),
             "dense": main_path_phase("dense", *textured_hall(device=device), device,
                                      ("K4", "K5"), ("K1", "K2", "K3"),
-                                     frame_phase=dense_frame_phase),
+                                     frame_phases=(dense_frame_phase,)),
             "instanced": main_path_phase("instanced", *sphere_field_instanced(device=device),
                                          device, ("K1", "K6", "K7"), ("K2", "K3", "K4", "K5")),
             "sbvh": main_path_phase("sbvh", scene, camera, device, ("K1", "K2", "K3"),
-                                    ("K4", "K5", "K6", "K7"), builder="SBVH"),
+                                    ("K4", "K5", "K6", "K7"), cfg=main_cfg("SBVH")),
         }
         agreement("sbvh", "against the SAH render of the same frames", paths["sbvh"][4],
                   paths["main"][4])
@@ -1178,6 +1351,11 @@ def main() -> int:
         paths["texbox"] = main_path_phase("texbox", texbox, texbox_camera, device, ("K4", "K5"),
                                           ("K1", "K2", "K3", "K6", "K7"))
         phase_counts["texbox"] = paths["texbox"][0]
+        paths.update(bdpt_phases(scene, camera, device))
+        for name in ("cornell_box", "glass_gallery"):
+            parity_phase(name, integrator="BDPT")
+        phase_counts["bdpt_converged"] = bdpt_converged_phase(device)
+        phase_counts.update({label: paths[label][0] for label in BDPT_PHASES})
     baked, inst = paths["main"][3], paths["instanced"][3]
     log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
         f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")

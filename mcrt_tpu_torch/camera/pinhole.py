@@ -1,9 +1,8 @@
 """Pinhole camera with frustum-corner-ray parametrization (counterpart of
 ``mcrt_tpu/camera/pinhole.py``): per-pixel directions are the normalized
-bilinear interpolation of the 4 frustum corner directions.
-
-The BDPT importance functions (``eval_we``, ``pdf_we``, ``sample_wi``) wait
-with BDPT (ROADMAP)."""
+bilinear interpolation of the 4 frustum corner directions, and the
+importance functions that BDPT's t=1 strategies use (``world_to_uv``,
+``eval_we``, ``pdf_we``, ``sample_wi``), each over any leading shape."""
 from __future__ import annotations
 
 import math
@@ -69,6 +68,55 @@ class PinholeCamera(TensorRecord):
         corners = (self.c00, self.c10, self.c01, self.c11)
         return RayDiff(dddx=m.lerp_direction(*corners, uv + du),
                        dddy=m.lerp_direction(*corners, uv + dv))
+
+    # importance transport (BDPT t=1 strategies)
+
+    def world_to_uv(self, d: torch.Tensor):
+        """Project a world direction from the eye onto film uv; returns
+        (uv, in_frustum)."""
+        dz = m.dot(d, self.forward)
+        ok = dz > 1e-6
+        inv = torch.where(ok, 1.0 / torch.where(ok, dz, 1.0), 0.0)
+        x = m.dot(d, self.right) * inv
+        y = m.dot(d, self.up) * inv
+        hx = self.tan_half_fov * self.aspect
+        hy = self.tan_half_fov
+        u = (x / hx) * 0.5 + 0.5
+        v = (y / hy) * 0.5 + 0.5
+        inside = ok & (u >= 0.0) & (u < 1.0) & (v >= 0.0) & (v < 1.0)
+        return torch.stack([u, v], dim=-1), inside
+
+    def eval_we(self, d: torch.Tensor) -> torch.Tensor:
+        """Importance We(d) of a ray leaving the eye in unit direction d:
+        1/(A cos^4) on the z=1 film plane, 0 outside the frustum.  The
+        powers are the JAX package's ``integer_pow`` products."""
+        _, inside = self.world_to_uv(d)
+        cos_t = m.dot(d, self.forward)
+        cos2 = cos_t * cos_t
+        w = m.safe_div(torch.ones_like(cos_t), self.area * (cos2 * cos2))
+        return torch.where(inside, w, 0.0)
+
+    def pdf_we(self, d: torch.Tensor):
+        """(pdf_pos, pdf_dir) of emitting a ray in direction d: the pinhole's
+        position is a delta (1), pdf_dir = 1/(A cos^3)."""
+        _, inside = self.world_to_uv(d)
+        cos_t = m.dot(d, self.forward)
+        pdf_dir = m.safe_div(torch.ones_like(cos_t), self.area * (cos_t * (cos_t * cos_t)))
+        return torch.ones_like(cos_t), torch.where(inside, pdf_dir, 0.0)
+
+    def sample_wi(self, ref_p: torch.Tensor):
+        """The (delta) direction from scene points to the eye for the t=1
+        connection: (wi, distance, We, pdf, uv, inside), the pdf in solid
+        angle at the point (dist^2 / cos)."""
+        to_cam = self.position - ref_p
+        dist2 = m.length_sq(to_cam)
+        dist = torch.sqrt(dist2)
+        wi = to_cam / torch.clamp_min(dist[..., None], 1e-20)
+        uv, inside = self.world_to_uv(-wi)
+        we = self.eval_we(-wi)
+        cos_t = m.dot(-wi, self.forward)
+        pdf = m.safe_div(dist2, torch.clamp_min(cos_t, 1e-8))
+        return wi, dist, we, pdf, uv, inside
 
 
 def pixel_uv(width: int, height: int, jitter: torch.Tensor | None = None,

@@ -1,8 +1,9 @@
 """Frame renderer (counterpart of ``mcrt_tpu/renderer.py``).
 
 ``render_sample`` traces one sample per pixel: the frame-wide Halton jitter,
-pinhole rays in Morton pixel order, a per-pixel sample stream and the path
-integrator, then the radiance back in row-major pixel order.
+pinhole rays in Morton pixel order, a per-pixel sample stream and the
+integrator (the path tracer or BDPT), then the radiance back in row-major
+pixel order.
 ``render_frame_fn`` folds ``samples_per_pass`` such samples into the
 accumulator, and ``Renderer`` owns the scene, the intersector and the
 accumulator on one device.  PyTorch runs eagerly, so where the JAX package
@@ -21,6 +22,7 @@ from .camera.pinhole import PinholeCamera, pixel_uv
 from .config import IntegratorType, RenderConfig
 from .core.types import Rays, default_device
 from .film.accumulate import Accumulator, accumulate
+from .integrators import bdpt as bdpt_integrator
 from .integrators import path as path_integrator
 from .sampling import rng
 from .scene.scene import Scene
@@ -88,9 +90,6 @@ def render_sample(scene: Scene, camera: PinholeCamera, frame: int,
                   cfg: RenderConfig, intersector: Intersector):
     """One sample-per-pixel wavefront: ((H*W, 3) radiance in row-major pixel
     order, (2,) jitter used)."""
-    if cfg.integrator.type != IntegratorType.PATH:
-        raise NotImplementedError(
-            "the BDPT integrator is not ported yet (ROADMAP, Queue 1: BDPT)")
     w, h = cfg.width, cfg.height
     device = camera.position.device
     jitter = frame_jitter(frame, device)
@@ -101,9 +100,14 @@ def render_sample(scene: Scene, camera: PinholeCamera, frame: int,
     rays = Rays.make(o, d)
     # per-pixel sample streams stay keyed by the pixel, not the trace slot
     stream = rng.make_stream(cfg.sampler, frame, order)
-    radiance = path_integrator.trace(scene, rays, stream, cfg.integrator,
-                                     intersector.intersect, intersector.occluded,
-                                     diff=diff)
+    if cfg.integrator.type == IntegratorType.PATH:
+        radiance = path_integrator.trace(scene, rays, stream, cfg.integrator,
+                                         intersector.intersect, intersector.occluded,
+                                         diff=diff)
+    else:
+        radiance = bdpt_integrator.trace(scene, camera, rays, stream, cfg.integrator,
+                                         intersector.intersect, intersector.occluded,
+                                         film=(w, h), slot_of_pixel=inv_order)
     return radiance[inv_order], jitter
 
 

@@ -1,9 +1,11 @@
 """Where one progressive frame of the main path spends its time, on a GPU.
 
-    python -m mcrt_tpu_torch.tools.profile_frame [SCENE] [--out chiprun_out]
+    python -m mcrt_tpu_torch.tools.profile_frame [SCENE] [--integrator bdpt]
+        [--out chiprun_out]
 
 It renders SCENE through ``Renderer`` at 512x512, 8 bounces, Sobol, SAH
-blocks: one of the main-path configurations of ``chip_smoke.py``, namely
+blocks, with the path tracer (the default) or BDPT: one of the configurations
+of ``chip_smoke.py``, namely
 ``sphere_field`` (the default; 245,764 triangles, the visit-list kernels
 K1-K3), ``textured_hall`` (44 textured triangles, the dense kernels K4/K5)
 or ``sphere_field_instanced`` (``sphere_field``'s content as 11 instances
@@ -20,11 +22,15 @@ frame:
    ``path._shade`` wrapped in timers that synchronise before and after
    (the syncs add idle time, so the sum exceeds a plain frame); prints each
    bounce's shade, closest-hit and shadow-query time and the live rays.
+   Under BDPT the timers wrap the two subpath walks (their closest-hit
+   queries included), the four strategy families, each occlusion chunk
+   and the t=1 splat; "rest" is the frame outside them (camera rays, the
+   visibility masks and sums, the accumulator).
 4. Device share: ``torch.profiler`` over two unsynchronised frames; prints
    the wall time, the device time (the summed duration of every event that
    ran on the card: kernels, copies, fills) and the busy share, and the
    kernels with the most device time.  The full table goes to
-   ``<out>/profile_frame_<SCENE>.txt``.
+   ``<out>/profile_frame_<SCENE>_<INTEGRATOR>.txt``.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ def sync_sites(fn) -> collections.Counter:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("scene", nargs="?", default="sphere_field", choices=SCENES)
+    ap.add_argument("--integrator", default="path", choices=("path", "bdpt"))
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -84,9 +91,9 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ..accel import Intersector
-    from ..config import (BuilderType, BVHConfig, IntegratorConfig, RenderConfig,
-                          SamplerConfig, SamplerType)
-    from ..integrators import path
+    from ..config import (BuilderType, BVHConfig, IntegratorConfig, IntegratorType,
+                          RenderConfig, SamplerConfig, SamplerType)
+    from ..integrators import bdpt, path
     from ..renderer import Renderer
     from ..scene import builders
 
@@ -94,14 +101,15 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=SIZE, height=SIZE, spp=FRAMES + 5,
                        sampler=SamplerConfig(type=SamplerType.SOBOL),
                        bvh=BVHConfig(builder=BuilderType.SAH),
-                       integrator=IntegratorConfig(max_depth=DEPTH))
+                       integrator=IntegratorConfig(
+                           type=IntegratorType[args.integrator.upper()], max_depth=DEPTH))
     scene, camera = getattr(builders, args.scene)(device=device)
     renderer = Renderer(scene, camera, cfg, device=device)
     accel = renderer.intersector.accel
     blocks = getattr(accel, "blas", accel)
     print(f"{args.scene}: {int(scene.geometry.face_valid.sum())} triangles in the face "
           f"table, {type(accel).__name__} of {blocks.num_blocks} blocks, builder "
-          f"{blocks.builder}, {SIZE}^2, {DEPTH} bounces")
+          f"{blocks.builder}, {SIZE}^2, {DEPTH} bounces, {args.integrator}")
     renderer.step(1)
     torch.cuda.synchronize()
 
@@ -136,28 +144,47 @@ def main(argv=None) -> int:
             return out
         return run
 
-    base, shade = renderer.intersector, path._shade
+    base = renderer.intersector
+    if args.integrator == "path":
+        wrapped = {"_shade": timed("shade", path._shade, lambda *a: int(a[5].active.sum()))}
+        module, closest = path, timed("closest", base.intersect,
+                                      lambda s, r: int(r.active.sum()))
+    else:
+        def none(*a):
+            return 0
+
+        wrapped = {name: timed(stage, getattr(bdpt, name), none) for name, stage in (
+            ("generate_camera_subpath", "camera walk"), ("generate_light_subpath", "light walk"),
+            ("_family_s0", "s=0"), ("_family_s1", "s=1"), ("_family_connect", "s,t>=2"),
+            ("_family_t1", "t=1"), ("_splat", "splat"))}
+        module, closest = bdpt, base.intersect
+    own = {name: getattr(module, name) for name in wrapped}
     renderer.intersector = Intersector(
-        timed("closest", base.intersect, lambda s, r: int(r.active.sum())),
-        timed("shadow", base.occluded, lambda s, r: int(r.active.sum())),
-        base.accel)
-    path._shade = timed("shade", shade, lambda *a: int(a[5].active.sum()))
+        closest, timed("shadow", base.occluded, lambda s, r: int(r.active.sum())), base.accel)
+    for name, fn in wrapped.items():
+        setattr(module, name, fn)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         renderer.step(1)
     finally:
-        renderer.intersector, path._shade = base, shade
+        renderer.intersector = base
+        for name, fn in own.items():
+            setattr(module, name, fn)
     torch.cuda.synchronize()
     synced_ms = (time.perf_counter() - t0) * 1e3
     totals = {k: sum(ms for ms, _ in v) for k, v in stages.items()}
     print(f"[stages] synced frame {synced_ms:.1f} ms: " + ", ".join(
         f"{k} {v:.1f} ms" for k, v in totals.items())
         + f", rest {synced_ms - sum(totals.values()):.1f} ms")
-    for i in range(len(stages["shade"])):
-        row = ", ".join(f"{k} {stages[k][i][0]:.2f} ms ({stages[k][i][1]} live)"
-                        for k in ("closest", "shade", "shadow") if i < len(stages[k]))
-        print(f"[stages]   bounce {i}: {row}")
+    if args.integrator == "path":
+        for i in range(len(stages["shade"])):
+            row = ", ".join(f"{k} {stages[k][i][0]:.2f} ms ({stages[k][i][1]} live)"
+                            for k in ("closest", "shade", "shadow") if i < len(stages[k]))
+            print(f"[stages]   bounce {i}: {row}")
+    else:
+        for i, (ms, live) in enumerate(stages["shadow"]):
+            print(f"[stages]   occlusion chunk {i}: {ms:.2f} ms ({live} live shadow rays)")
 
     # 4. device share over two unsynced frames
     torch.cuda.synchronize()
@@ -181,7 +208,7 @@ def main(argv=None) -> int:
     sort_by = ("self_device_time_total" if hasattr(table[0], "self_device_time_total")
                else "self_cuda_time_total")
     os.makedirs(args.out, exist_ok=True)
-    path_out = os.path.join(args.out, f"profile_frame_{args.scene}.txt")
+    path_out = os.path.join(args.out, f"profile_frame_{args.scene}_{args.integrator}.txt")
     with open(path_out, "w") as f:
         f.write(table.table(sort_by=sort_by, row_limit=200))
     print(f"[profile] full table: {path_out}")

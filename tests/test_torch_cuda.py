@@ -636,6 +636,87 @@ def test_animated_frame_makes_no_host_sync(cuda_device):
     assert Renderer(moved, camera, cfg).scene.geometry.positions is moved.geometry.positions
 
 
+def _bdpt_cfg(size, depth, **kw):
+    from mcrt_tpu_torch.config import (IntegratorConfig, IntegratorType, RenderConfig,
+                                       SamplerConfig, SamplerType)
+
+    return RenderConfig(width=size, height=size, sampler=SamplerConfig(type=SamplerType.SOBOL),
+                        integrator=IntegratorConfig(type=IntegratorType.BDPT, max_depth=depth),
+                        **kw)
+
+
+@pytest.mark.cuda
+def test_bdpt_card_render_matches_cpu_render(cuda_device):
+    """A 1-spp BDPT frame of ``glass_gallery`` (K1-K3) on the card against
+    the same frame on the CPU: at least 99% of pixels within rtol 1e-3 /
+    atol 1e-4 (the t=1 splats are float atomics on the card)."""
+    from mcrt_tpu_torch import Renderer
+
+    cfg = _bdpt_cfg(32, 3)
+    imgs = [Renderer(*glass_gallery(device=d), cfg, device=d).render(1).cpu()
+            for d in (cuda_device, "cpu")]
+    close = torch.isclose(imgs[0], imgs[1], rtol=1e-3, atol=1e-4).all(dim=-1)
+    assert close.float().mean().item() >= 0.99
+    assert imgs[0].mean() > 0.0
+
+
+@pytest.mark.cuda
+def test_bdpt_frame_makes_no_host_sync(cuda_device):
+    """A BDPT frame of ``glass_gallery`` under torch's CUDA sync debug mode
+    "error", after one warm-up frame: no synchronizing call."""
+    from mcrt_tpu_torch import Renderer
+
+    r = Renderer(*glass_gallery(device=cuda_device), _bdpt_cfg(64, 3), device=cuda_device)
+    r.step(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r.step(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert r.accum.frame == 2 and bool(torch.isfinite(r.display_image()).all())
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.cuda
+def test_bdpt_occlusion_chunk_through_k1_k3(cuda_device):
+    """One full occlusion chunk (``OCC_CHUNK_RAYS`` = 2^21 shadow rays) of a
+    512x512, depth-8 BDPT sample of ``sphere_field``, taken from the
+    renderer, through K1 and K3: the cull keys equal ``cull_plain``'s and
+    the blocked flags differ from ``occluded_plain``'s on at most the walks'
+    allowance (1e-4 of the live rays, never fewer than 2)."""
+    from mcrt_tpu_torch.accel import Intersector, build_intersector
+    from mcrt_tpu_torch.integrators import bdpt
+    from mcrt_tpu_torch.renderer import render_sample
+
+    scene, camera = sphere_field(device=cuda_device)
+    cfg = _bdpt_cfg(512, 8)
+    base = build_intersector(scene, cfg)
+    chunk = []
+
+    def capture(s, rays):
+        if rays.n == bdpt.OCC_CHUNK_RAYS:
+            chunk.append(rays)
+            raise _Captured
+        return base.occluded(s, rays)
+
+    with torch.no_grad(), pytest.raises(_Captured):
+        render_sample(scene, camera, 0, cfg, Intersector(base.intersect, capture, base.accel))
+    rays, acc = chunk[0], base.accel
+    assert rays.n == 1 << 21 and int(rays.active.sum()) > 100_000
+    packed, _ = tb._sorted_table(rays, acc, True)
+    keys = kernels.cull(packed, acc.chunk_aabb, acc.aabb, tb.TILE)
+    assert torch.equal(keys, tb.cull_plain(packed, acc.chunk_aabb, acc.aabb, tb.TILE))
+    counts, lists, _ = tb.lists_from_keys(keys)
+    b_k = kernels.occluded(counts, packed, lists, acc.tri, acc.aabb, tb.TILE, tb.GROUP)
+    b_p = tb.occluded_plain(counts, packed, lists, acc.tri, tb.TILE, tb.GROUP)
+    assert int((b_k != b_p).sum()) <= _walk_allowed(packed)
+    assert int(b_k.sum()) > 1000
+
+
 @pytest.mark.parametrize("isolated", [False, True])
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, isolated):
     """With no CUDA device, and in a directory holding only the script,

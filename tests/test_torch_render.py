@@ -216,7 +216,6 @@ def test_progressive_controls():
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(integrator=IntegratorConfig(type=IntegratorType.BDPT)), "BDPT"),
     (dict(tonemap=ToneMapConfig(enabled=True)), "tonemap"),
     (dict(accel=AccelType.BRUTE), "not ported"),
     (dict(accel=AccelType.LBVH), "not ported"),
@@ -227,6 +226,28 @@ def test_unported_options_raise(change, match):
     with pytest.raises(NotImplementedError, match=match):
         Renderer(scene, cam, RenderConfig(width=8, height=8, **change),
                  device="cpu").render(1)
+
+
+def test_bdpt_renderer_and_spp_batch():
+    """A BDPT ``Renderer`` on ``cornell_box`` renders a finite image with a
+    positive mean, and ``render_spp_batch`` under BDPT equals the mean of
+    its samples rendered one by one."""
+    from mcrt_tpu_torch.parallel.render import render_spp_batch
+    from mcrt_tpu_torch.renderer import render_sample
+
+    scene, cam = tbuild.cornell_box(device="cpu")
+    cfg = RenderConfig(width=12, height=8, spp=2,
+                       integrator=IntegratorConfig(type=IntegratorType.BDPT, max_depth=3))
+    r = Renderer(scene, cam, cfg, device="cpu")
+    img = r.render()
+    assert img.shape == (8, 12, 3) and bool(torch.isfinite(img).all()) and img.mean() > 0.0
+    frames = [0, 1, 2]
+    with torch.no_grad():
+        batch = render_spp_batch(r.scene, r.camera, frames, cfg, r.intersector)
+        each = torch.stack([render_sample(r.scene, r.camera, f, cfg, r.intersector)[0]
+                            for f in frames]).mean(0)
+    assert batch.shape == (12 * 8, 3) and batch.mean() > 0.0
+    assert torch.equal(batch, each)
 
 
 def test_render_spp_batch_refuses_a_mesh():
