@@ -141,6 +141,28 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    the emitter under 0.08 (``tests/test_bdpt.py``'s bound); the t=1 splats
    are float atomics (``index_add_``), so BDPT frames are compared by a
    share or a converged mean, never by equality.
+7. Inverse rendering, after the ``torch.no_grad()`` block that holds
+   phases 1-6, each phase with the launch counters set to 0 just before
+   and read just after.  ``[grad]``: a gradient step (``make_train_step``,
+   ``full_params``) on ``sphere_field`` at 512x512, depth 8, 1 spp, Sobol
+   (K1-K3): the forward loss without a graph and the step timed
+   ``GRAD_STEPS`` times each (median), their ratio (the JAX bench's
+   ``grad_overhead_ratio``) and the peak memory printed; the gradients
+   finite and those of diffuse, roughness and intensity not all zero; the
+   step's loss the forward's (rtol 1e-5); then one more step holds every
+   K1-K3 launch against the plain versions (K1 equal, K2/K3 within the
+   walks' tolerance).  ``[grad_128]``: the same at the JAX bench's size,
+   128x128, 2 spp, depth 3, ``material_params``.  ``[inverse]``:
+   ``InverseRenderer`` on ``cornell_box`` (K4/K5) at 512x512, depth 8,
+   ``full_params``, ``INVERSE_STEPS`` Adam steps of 1 spp from a wrong
+   red-wall albedo: each step's loss (finite) and time, the peak memory;
+   one more step holds every K4/K5 launch against the plain versions.
+   ``[inverse_recover]``: ``tests/test_torch_inverse.py``'s albedo
+   recovery on the card, at its size and criteria.  ``[grad_parity]``:
+   card gradients against CPU gradients (``tools/grad_check.py``) on
+   ``cornell_box`` (material and light parameters) and ``textured_hall``
+   (texels), over the (sample, pixel) pairs whose forward radiance agrees
+   (at least 99%), within ``grad_check.GRAD_TOL``.
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
@@ -168,7 +190,7 @@ The second-to-last stdout line is the per-kernel JSON record (``ms``,
 of seven of a main path's eight bounces, K8's float32 chain's and K9's at
 k = 128; ``launches`` are the counts of the main path that runs the
 kernel, ``vpu_bench.main()`` for K8/K9, and ``launches_by_path`` every
-phase's count of phases 4 to 6; each row's ``variants`` map holds
+phase's count of phases 4 to 7; each row's ``variants`` map holds
 every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by`` and ``library_ms``, and for K8 (float32, bfloat16) and K9
 (k=8, k=128) also ``issue_floor_ms`` and ``sm_mhz``), the last one
@@ -177,6 +199,7 @@ every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import sys
@@ -198,6 +221,8 @@ ANIM_SHAPE, ANIM_FRAMES = 6, 3  # the sphere the animated phases move, and for h
 MIN_CHANGED = 0.002  # least share of pixels a moved sphere must change
 SPP_BATCH = 4  # samples of the render_spp_batch phase
 BDPT_CONVERGED_REL = 0.08  # tests/test_bdpt.py's bound, BDPT against PT at 512 spp
+GRAD_STEPS = 3  # timed forward runs and gradient steps of each gradient phase (median)
+INVERSE_STEPS = 4  # Adam steps of the inverse phase
 HERE = os.path.dirname(os.path.abspath(__file__))
 TEXBOX = os.path.join(HERE, "tests", "assets", "texbox.obj")
 TEXBOX_CAMERA = dict(eye=(0.0, 1.0, 2.5), target=(0.0, 0.8, 0.0), fov_deg=50.0)
@@ -739,17 +764,18 @@ def check_full_chunk(label, k, launches):
                              "chunk")
 
 
-def cull_frame_phase(renderer, label, chunk=False):
-    """The inputs K1 is handed during one frame of ``renderer``: each
-    launch's keys equal to the plain version's; K1's time on each (median
-    of ``KERNEL_REPS``) and its bound, summed over the frame.  With
-    ``chunk``, one launch must have been a full occlusion chunk."""
+def cull_frame_phase(frame, label, chunk=False):
+    """The inputs K1 is handed during one call of ``frame`` (a frame, or a
+    gradient step): each launch's keys equal to the plain version's; K1's
+    time on each (median of ``KERNEL_REPS``) and its bound, summed over the
+    call.  With ``chunk``, one launch must have been a full occlusion
+    chunk."""
     import torch
 
     from mcrt_tpu_torch.accel import blocked, kernels
-    from mcrt_tpu_torch.tools.wavefronts import inputs_of_a_frame
+    from mcrt_tpu_torch.tools.wavefronts import inputs_of
 
-    inputs = inputs_of_a_frame(renderer, ["K1"])["K1"]
+    inputs = inputs_of(frame, ["K1"])["K1"]
     total_ms = total_bound = 0.0
     for packed, chunk_aabb, boxes, tile in inputs:
         ms, _, keys = kernel_timed(lambda: kernels.cull(packed, chunk_aabb, boxes, tile),
@@ -767,16 +793,17 @@ def cull_frame_phase(renderer, label, chunk=False):
         check_full_chunk(label, "K1", [a[0].shape[1] for a in inputs])
 
 
-def dense_frame_phase(renderer, label, chunk=False):
-    """The inputs K4 and K5 are handed during one frame of ``renderer``:
-    each launch's outputs equal to the plain version's (as in the kernel
-    phase); the kernels' time on each (median of ``KERNEL_REPS``) and their
-    bound, summed over the frame's launches of both.  With ``chunk``, one
-    launch of K5 must have been a full occlusion chunk."""
+def dense_frame_phase(frame, label, chunk=False):
+    """The inputs K4 and K5 are handed during one call of ``frame`` (a
+    frame, or a gradient step): each launch's outputs equal to the plain
+    version's (as in the kernel phase); the kernels' time on each (median
+    of ``KERNEL_REPS``) and their bound, summed over the call's launches of
+    both.  With ``chunk``, one launch of K5 must have been a full occlusion
+    chunk."""
     from mcrt_tpu_torch.accel import blocked, kernels
-    from mcrt_tpu_torch.tools.wavefronts import inputs_of_a_frame
+    from mcrt_tpu_torch.tools.wavefronts import inputs_of
 
-    inputs = inputs_of_a_frame(renderer, ["K4", "K5"])
+    inputs = inputs_of(frame, ["K4", "K5"])
     total_ms = total_bound = 0.0
     for k, (kern, plain, closest) in {
             "K4": (kernels.dense_closest, blocked.dense_closest_plain, True),
@@ -805,21 +832,22 @@ def dense_frame_phase(renderer, label, chunk=False):
         check_full_chunk(label, "K5", [a[0].shape[1] for a in inputs["K5"]])
 
 
-def walk_frame_phase(renderer, label, ids, chunk):
+def walk_frame_phase(frame, label, ids, chunk=None):
     """The inputs the list walks ``ids`` (K2/K3, or K6/K7) are handed
-    during one frame of ``renderer``: each launch against its plain version
-    within the walks' tolerance (``WALK_SHARE``, ``WALK_MIN_RAYS``); the
-    kernels' time on each (median of ``KERNEL_REPS``), summed over the
-    frame.  One launch of ``chunk`` must have been a full occlusion chunk."""
+    during one call of ``frame`` (a frame, or a gradient step): each launch
+    against its plain version within the walks' tolerance (``WALK_SHARE``,
+    ``WALK_MIN_RAYS``); the kernels' time on each (median of
+    ``KERNEL_REPS``), summed over the call.  Where ``chunk`` names a
+    kernel, one of its launches must have been a full occlusion chunk."""
     from mcrt_tpu_torch.accel import blocked, kernels
     from mcrt_tpu_torch.accel import two_level as tl
-    from mcrt_tpu_torch.tools.wavefronts import inputs_of_a_frame
+    from mcrt_tpu_torch.tools.wavefronts import inputs_of
 
     # the plain versions take the kernel's arguments without its entry
     # boxes, the third from last
     plain = {"K2": blocked.closest_plain, "K3": blocked.occluded_plain,
              "K6": tl.closest2_plain, "K7": tl.occluded2_plain}
-    inputs = inputs_of_a_frame(renderer, ids)
+    inputs = inputs_of(frame, ids)
     for k in ids:
         total_ms = 0.0
         for i, args in enumerate(inputs[k]):
@@ -837,7 +865,8 @@ def walk_frame_phase(renderer, label, ids, chunk):
             "within the walks' tolerance of the plain version)")
         if not inputs[k]:
             raise AssertionError(f"{label}: a frame launched no {k}")
-    check_full_chunk(label, chunk, [a[1].shape[1] for a in inputs[chunk]])
+    if chunk:
+        check_full_chunk(label, chunk, [a[1].shape[1] for a in inputs[chunk]])
 
 
 def main_cfg(builder="SAH", spp=MAIN_FRAMES + 3, integrator="PATH", size=WIDTH,
@@ -888,8 +917,8 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phases=(
                     cfg=None):
     """``Renderer`` on ``scene`` under ``cfg`` (``main_cfg()`` by default):
     returns (launch counts, ms/spp, rays/s, image mean, image after the
-    timed frames); then each of ``frame_phases(renderer, label)``, each on
-    one more frame."""
+    timed frames); then each of ``frame_phases(frame, label)``, each on one
+    more frame, ``frame()`` running it."""
     import torch
 
     from mcrt_tpu_torch import Renderer
@@ -960,7 +989,7 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phases=(
         f"peak memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
         f"card {card_line()}")
     for phase in frame_phases:
-        phase(renderer, label)
+        phase(lambda: renderer.step(1), label)
     return counts, ms, rays_s, mean, img
 
 
@@ -1262,6 +1291,223 @@ def texbox_phase(device):
     return scene, camera
 
 
+def check_grads(label, grads, nonzero):
+    """Every gradient finite, and those of the fields ``nonzero`` not all
+    zero; logs each field's largest |g|."""
+    import torch
+
+    log(f"[{label}] gradients: " + ", ".join(
+        f"{k} {tuple(g.shape)} max |g| {g.abs().max().item():.4e}" for k, g in grads.items()))
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    zero = [k for k in nonzero if not grads[k].abs().sum().item() > 0.0]
+    if bad or zero:
+        raise AssertionError(f"{label}: gradients not finite {bad} or all zero {zero}")
+
+
+def grad_phase(label, scene, camera, device, view_name, expect, forbid, nonzero, size=WIDTH,
+               spp=1, depth=MAX_DEPTH, frame_phases=()):
+    """A gradient step (``make_train_step``, the mean squared error against
+    a render of other samples) on ``scene`` at ``size``^2, Sobol, ``depth``
+    bounces, ``spp`` samples, with ``view_name``'s parameters: the forward
+    loss under ``torch.no_grad()`` and the step (forward and backward) are
+    timed ``GRAD_STEPS`` times each (median) with the launch counters set to
+    0 just before and read just after; prints both, their ratio (the JAX
+    bench's ``grad_overhead_ratio``) and the peak memory.  The gradients
+    must be finite and those of ``nonzero`` not all zero.  Then each of
+    ``frame_phases(step, label)`` on one more step.  Returns (launch
+    counts, forward ms, step ms, peak GiB)."""
+    import torch
+
+    from mcrt_tpu_torch.accel import build_intersector, kernels
+    from mcrt_tpu_torch.diff import estimators
+    from mcrt_tpu_torch.parallel.render import make_train_step, render_spp_batch
+    from mcrt_tpu_torch.tools.card import card_line
+
+    cfg = main_cfg(spp=spp, size=size, depth=depth)
+    isect = build_intersector(scene, cfg)
+    view = getattr(estimators, view_name)()
+    frames = list(range(spp))
+    with torch.no_grad():
+        target = render_spp_batch(scene, camera, [f + 1000 for f in frames], cfg, isect)
+    loss_fn = estimators.render_loss_fn(camera, cfg, isect, view)
+    step = make_train_step(camera, cfg, isect, None, view.get, view.set)
+    params = view.get(scene)
+
+    def forward():
+        with torch.no_grad():
+            return loss_fn(params, scene, frames, target)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    step(scene, frames, target)  # warm-up
+    fwd_ms, fwd_all, fwd_loss = timed(forward, GRAD_STEPS)
+    step_ms, step_all, (loss, grads) = timed(lambda: step(scene, frames, target), GRAD_STEPS)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    check_launches(label, counts, expect, forbid)
+    check_grads(label, grads, nonzero)
+    if not (bool(torch.isfinite(loss)) and torch.isclose(loss, fwd_loss, rtol=1e-5)):
+        raise AssertionError(f"{label}: the step's loss {loss.item()} is not finite or not "
+                             f"the forward loss {fwd_loss.item()} (rtol 1e-5)")
+    log(f"[{label}] {size}x{size}, {depth} bounces, {spp} spp, {view_name}: forward "
+        f"{fwd_ms:.2f} ms, forward+backward {step_ms:.2f} ms, ratio {step_ms / fwd_ms:.3f} "
+        f"(median of {GRAD_STEPS}; forward " + ", ".join(f"{t:.1f}" for t in fwd_all)
+        + "; step " + ", ".join(f"{t:.1f}" for t in step_all) + f"), loss {loss.item():.6e}, "
+        f"peak memory {peak:.2f} GiB, launches {counts}; card {card_line()}")
+    for phase in frame_phases:
+        phase(lambda: step(scene, frames, target), label)
+    return counts, fwd_ms, step_ms, peak
+
+
+def wrong_albedo(scene):
+    """``scene`` with the red wall's albedo (material 1) set to grey 0.3,
+    the start of ``tests/test_torch_inverse.py``'s albedo recovery."""
+    diffuse = scene.materials.diffuse.clone()
+    diffuse[1] = 0.3
+    return scene.replace(materials=scene.materials.replace(diffuse=diffuse))
+
+
+def inverse_phase(device):
+    """BASELINE configuration 5 at full width: ``InverseRenderer`` on
+    ``cornell_box`` (K4/K5) at 512x512, depth 8, Sobol, ``full_params``,
+    ``INVERSE_STEPS`` Adam steps of 1 spp each, from the wrong red-wall
+    albedo towards a 4-spp render of the true scene, with the launch
+    counters set to 0 just before and read just after.  Prints each step's
+    loss and host time (a step ends reading its loss, so the card has
+    finished it) and the peak memory; the losses must be finite.  Then one
+    more step holds every K4/K5 launch against its plain version."""
+    import torch
+
+    from mcrt_tpu_torch.accel import build_intersector, kernels
+    from mcrt_tpu_torch.diff import estimators
+    from mcrt_tpu_torch.parallel.render import render_spp_batch
+    from mcrt_tpu_torch.scene.builders import cornell_box
+    from mcrt_tpu_torch.tools.card import card_line
+
+    label = "inverse"
+    scene, camera = cornell_box(device=device)
+    cfg = main_cfg(spp=1)
+    with torch.no_grad():
+        target = render_spp_batch(scene, camera, range(4), cfg, build_intersector(scene, cfg))
+    inv = estimators.InverseRenderer(wrong_albedo(scene), camera, cfg,
+                                     estimators.full_params(), learning_rate=0.05)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    marks = [time.perf_counter()]
+    _, params, losses = inv.run(target, steps=INVERSE_STEPS, spp_per_step=1, seed=0,
+                                callback=lambda i, p, loss: marks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    step_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
+    log(f"[{label}] cornell_box {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, 1 spp a step, "
+        f"full_params: losses " + ", ".join(f"{v:.6e}" for v in losses) + "; ms a step "
+        + ", ".join(f"{t:.1f}" for t in step_ms) + f" (median {statistics.median(step_ms):.1f}"
+        f"), peak memory {peak:.2f} GiB, launches {counts}; card {card_line()}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    if not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError(f"{label}: a parameter is not finite after the steps")
+    dense_frame_phase(lambda: inv.run(target, steps=1, spp_per_step=1, seed=0), label)
+    return counts
+
+
+def inverse_recover_phase(device):
+    """``tests/test_torch_inverse.py``'s albedo recovery on the card, at its
+    size and criteria: ``cornell_box`` 16x16, depth 2, 8 spp a step, 60
+    Adam steps at learning rate 0.1 on the same streams as the target; the
+    last loss below 10% of the first, the red wall's albedo within 0.15."""
+    import torch
+
+    from mcrt_tpu_torch.accel import build_intersector, kernels
+    from mcrt_tpu_torch.config import IntegratorConfig, RenderConfig
+    from mcrt_tpu_torch.diff import estimators
+    from mcrt_tpu_torch.parallel.render import render_spp_batch
+    from mcrt_tpu_torch.scene.builders import cornell_box
+    from mcrt_tpu_torch.tools.card import card_line
+
+    label = "inverse_recover"
+    scene, camera = cornell_box(device=device)
+    cfg = RenderConfig(width=16, height=16, spp=8, integrator=IntegratorConfig(max_depth=2))
+    with torch.no_grad():
+        target = render_spp_batch(scene, camera, range(8), cfg, build_intersector(scene, cfg))
+    inv = estimators.InverseRenderer(wrong_albedo(scene), camera, cfg,
+                                     estimators.material_params(), learning_rate=0.1)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    recovered, _, losses = inv.run(target, steps=60, spp_per_step=8, seed=0,
+                                   advance_frames=False)
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    got = recovered.materials.diffuse[1].cpu()
+    want = scene.materials.diffuse[1].cpu()
+    err = (got - want).abs().max().item()
+    log(f"[{label}] 60 steps in {secs:.2f} s: loss {losses[0]:.6e} -> {losses[-1]:.6e} "
+        f"({losses[-1] / losses[0]:.4f} of the first, bound 0.1), albedo {got.tolist()} "
+        f"against {want.tolist()} (max error {err:.4f}, bound 0.15), launches {counts}; "
+        f"card {card_line()}")
+    check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
+    if not losses[-1] < 0.1 * losses[0] or not err <= 0.15:
+        raise AssertionError(f"{label}: the albedo was not recovered")
+    return counts
+
+
+def grad_parity_phase(device):
+    """Card gradients against CPU gradients (``tools/grad_check.py``) at
+    ``tests/test_torch_diff.py``'s sizes, depth 2: ``cornell_box``
+    ``material_params`` and ``light_params`` (16x16, 16 spp) and
+    ``textured_hall`` texels (12x12, 4 spp), over the (sample, pixel)
+    pairs whose forward radiance agrees (at least 99%), each field within
+    ``GRAD_TOL``."""
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.scene.builders import cornell_box, textured_hall
+    from mcrt_tpu_torch.tools import grad_check
+
+    label = "grad_parity"
+    kernels.reset_launch_counts()
+    for builder, view, size, spp, floats in (
+            (cornell_box, "material_params", 16, 16, False),
+            (cornell_box, "light_params", 16, 16, False),
+            (textured_hall, "texture_params", 12, 4, True)):
+        share, grads = grad_check.device_parity(builder, view, size, spp, 2, device, floats)
+        cmp = grad_check.compare(grads)
+        log(f"[{label}] {builder.__name__} {view}: samples agreeing {share:.4f}; " + ", ".join(
+            f"{k} max |card - cpu| {e:.3e} of max |g| {sc:.4e} ({'within' if ok else 'OUTSIDE'}"
+            f" rtol {grad_check.GRAD_TOL[k][0]:g} + {grad_check.GRAD_TOL[k][1]:g} max)"
+            for k, (e, sc, ok) in cmp.items()))
+        if share < grad_check.MIN_AGREE or not all(ok for _, _, ok in cmp.values()):
+            raise AssertionError(f"{label}: {builder.__name__} {view}: card gradients depart "
+                                 "from the CPU's")
+    counts = kernels.launch_counts()
+    check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
+    return counts
+
+
+GRAD_PHASES = ("grad", "grad_128", "inverse", "inverse_recover", "grad_parity")
+
+
+def grad_phases(scene, camera, device):
+    """Phase 7, inverse rendering, outside ``torch.no_grad()``: returns
+    each phase's launch counts."""
+    k1_3, k4_5, k6_7 = ("K1", "K2", "K3"), ("K4", "K5"), ("K6", "K7")
+    walk = partial(walk_frame_phase, ids=("K2", "K3"))
+    return {
+        "grad": grad_phase("grad", scene, camera, device, "full_params", k1_3, k4_5 + k6_7,
+                           ("diffuse", "roughness", "intensity"),
+                           frame_phases=(cull_frame_phase, walk))[0],
+        "grad_128": grad_phase("grad_128", scene, camera, device, "material_params", k1_3,
+                               k4_5 + k6_7, ("diffuse", "roughness"), size=128, spp=2,
+                               depth=3)[0],
+        "inverse": inverse_phase(device),
+        "inverse_recover": inverse_recover_phase(device),
+        "grad_parity": grad_parity_phase(device),
+    }
+
+
 BDPT_PHASES = ("bdpt", "bdpt_128", "bdpt_dense", "bdpt_instanced")
 
 
@@ -1356,6 +1602,7 @@ def main() -> int:
             parity_phase(name, integrator="BDPT")
         phase_counts["bdpt_converged"] = bdpt_converged_phase(device)
         phase_counts.update({label: paths[label][0] for label in BDPT_PHASES})
+    phase_counts.update(grad_phases(scene, camera, device))
     baked, inst = paths["main"][3], paths["instanced"][3]
     log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
         f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")

@@ -64,8 +64,9 @@ def two_level_intersector(acc) -> Intersector:
 
 
 _NOT_PORTED = {
-    AccelType.LBVH: "LBVH (Queue 1 item 17: retire from the port)",
-    AccelType.BRUTE: "the brute-force oracle",
+    AccelType.LBVH: "Queue 1, LBVH and the brute oracle: LBVH is retired from the port",
+    AccelType.BRUTE: "Queue 1, LBVH and the brute oracle: the oracle stays in the JAX "
+                     "package",
 }
 
 

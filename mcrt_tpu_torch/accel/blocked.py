@@ -29,8 +29,11 @@ arithmetic and skip, per warp, blocks no ray of the warp enters, so they
 are held to ``closest_plain`` / ``occluded_plain`` within a stated share
 of differing rays (``chip_smoke.py``), as are the two-level K6/K7.
 
-Intersection carries no gradient (the JAX package returns zero
-cotangents); callers run under ``torch.no_grad()``.
+Intersection carries no gradient: the JAX package's queries return zero
+cotangents, and ``_query_closest`` / ``_query_any`` detach the packed ray
+table they hand the kernels or the plain versions, so neither route builds
+a graph.  ``_resolve_uv`` runs outside them on the attached rays, as the
+JAX package's runs outside its ``custom_vjp``.
 """
 from __future__ import annotations
 
@@ -860,6 +863,7 @@ def _dense_query(rays_packed, tri, closest: bool):
 
 
 def _query_closest(rays_packed, accel: BlockedAccel):
+    rays_packed = rays_packed.detach()  # no gradient through the query
     if accel.num_blocks <= DENSE_BLOCKS:
         return _dense_query(rays_packed, accel.tri, True)
     counts, lists, tn_sorted = _visit_lists(rays_packed, accel)
@@ -870,6 +874,7 @@ def _query_closest(rays_packed, accel: BlockedAccel):
 
 
 def _query_any(rays_packed, accel: BlockedAccel):
+    rays_packed = rays_packed.detach()
     if accel.num_blocks <= DENSE_BLOCKS:
         return _dense_query(rays_packed, accel.tri, False)
     counts, lists, _ = _visit_lists(rays_packed, accel)

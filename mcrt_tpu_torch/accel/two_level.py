@@ -349,6 +349,7 @@ def pair_lists(rays_packed, accel: TwoLevelAccel):
 
 
 def _query2_closest(rays_packed, accel: TwoLevelAccel):
+    rays_packed = rays_packed.detach()  # no gradient through the query
     counts, lists, tn_sorted = pair_lists(rays_packed, accel)
     args = (accel.blas.tri, accel.pair_code, accel.tw_rows)
     if rays_packed.device.type == "cpu":  # as _kernel_or_plain; K6 also takes the pair boxes
@@ -358,6 +359,7 @@ def _query2_closest(rays_packed, accel: TwoLevelAccel):
 
 
 def _query2_any(rays_packed, accel: TwoLevelAccel):
+    rays_packed = rays_packed.detach()
     counts, lists, _ = pair_lists(rays_packed, accel)
     args = (accel.blas.tri, accel.pair_code, accel.tw_rows)
     if rays_packed.device.type == "cpu":

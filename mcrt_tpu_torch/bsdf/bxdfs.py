@@ -30,12 +30,12 @@ def cos2_theta(w):
 
 
 def sin2_theta(w):
-    return torch.clamp_min(1.0 - cos2_theta(w), 0.0)
+    return m.fmax(1.0 - cos2_theta(w), 0.0)
 
 
 def _dsqrt(x, eps: float = 1e-18):
     """sqrt with a bounded derivative at 0 (value shifted by <= 1e-9)."""
-    return torch.sqrt(torch.clamp_min(x, eps))
+    return torch.sqrt(m.fmax(x, eps))
 
 
 def sin_theta(w):
@@ -52,13 +52,13 @@ def tan2_theta(w):
 
 def cos_phi(w):
     s = sin_theta(w)
-    return torch.where(s == 0.0, 1.0, torch.clamp(
+    return torch.where(s == 0.0, 1.0, m.fclip(
         w[..., 0] / torch.where(s == 0.0, 1.0, s), -1.0, 1.0))
 
 
 def sin_phi(w):
     s = sin_theta(w)
-    return torch.where(s == 0.0, 0.0, torch.clamp(
+    return torch.where(s == 0.0, 0.0, m.fclip(
         w[..., 2] / torch.where(s == 0.0, 1.0, s), -1.0, 1.0))
 
 
@@ -76,7 +76,7 @@ def refract_local(wo, eta_i_over_t):
     cos_i = cos_theta(wo)
     n_y = torch.where(cos_i >= 0.0, 1.0, -1.0)
     cos_i_abs = torch.abs(cos_i)
-    sin2_i = torch.clamp_min(1.0 - cos_i_abs * cos_i_abs, 0.0)
+    sin2_i = m.fmax(1.0 - cos_i_abs * cos_i_abs, 0.0)
     sin2_t = eta_i_over_t * eta_i_over_t * sin2_i
     tir = sin2_t >= 1.0
     cos_t = _dsqrt(1.0 - sin2_t)
@@ -92,7 +92,7 @@ def fresnel_dielectric(cos_theta_i, eta_i, eta_t):
     entering = cos_theta_i > 0.0
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
-    ci = torch.abs(torch.clamp(cos_theta_i, -1.0, 1.0))
+    ci = torch.abs(m.fclip(cos_theta_i, -1.0, 1.0))
     sin_i = _dsqrt(1.0 - ci * ci)
     sin_t = ei / et * sin_i
     tir = sin_t >= 1.0
@@ -105,7 +105,7 @@ def fresnel_dielectric(cos_theta_i, eta_i, eta_t):
 
 def fresnel_conductor(cos_theta_i, eta, k):
     """Conductor Fresnel with per-channel eta/k (..., 3)."""
-    ci = torch.clamp(torch.abs(cos_theta_i), 0.0, 1.0)[..., None]
+    ci = m.fclip(torch.abs(cos_theta_i), 0.0, 1.0)[..., None]
     cos2 = ci * ci
     sin2 = 1.0 - cos2
     eta2 = eta * eta
@@ -123,7 +123,7 @@ def fresnel_conductor(cos_theta_i, eta, k):
 
 
 def fresnel_schlick(cos_theta_i, f0):
-    c = torch.clamp(1.0 - torch.abs(cos_theta_i), 0.0, 1.0)
+    c = m.fclip(1.0 - torch.abs(cos_theta_i), 0.0, 1.0)
     return f0 + (1.0 - f0) * (c ** 5)[..., None]
 
 
@@ -156,7 +156,7 @@ def oren_nayar_f(albedo, sigma_deg, wo, wi):
     sin_ti = sin_theta(wi)
     sin_to = sin_theta(wo)
     cos_diff = cos_phi(wi) * cos_phi(wo) + sin_phi(wi) * sin_phi(wo)
-    max_cos = torch.clamp_min(cos_diff, 0.0)
+    max_cos = m.fmax(cos_diff, 0.0)
     abs_ci = abs_cos_theta(wi)
     abs_co = abs_cos_theta(wo)
     sin_a = torch.where(abs_ci > abs_co, sin_to, sin_ti)
@@ -167,7 +167,7 @@ def oren_nayar_f(albedo, sigma_deg, wo, wi):
 
 def roughness_to_alpha(roughness):
     """PBRT-style remap."""
-    x = torch.log(torch.clamp_min(roughness, 1e-3))
+    x = torch.log(m.fmax(roughness, 1e-3))
     return (1.62142 + 0.819955 * x + 0.1734 * x * x + 0.0171201 * x ** 3
             + 0.000640711 * x ** 4)
 
@@ -231,7 +231,7 @@ def mf_sample_wh(wo, u2, alpha, dist: int = TROWBRIDGE_REITZ):
     else:
         t2 = -alpha * alpha * torch.log(torch.clamp_min(1.0 - u2[..., 0], 1e-20))
     ct = 1.0 / torch.sqrt(1.0 + t2)
-    st = torch.sqrt(torch.clamp_min(1.0 - ct * ct, 0.0))
+    st = torch.sqrt(m.fmax(1.0 - ct * ct, 0.0))
     wh = m.spherical_direction(st, ct, phi)
     return torch.where(same_hemisphere(wo, wh)[..., None], wh, -wh)
 

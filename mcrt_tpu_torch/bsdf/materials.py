@@ -85,7 +85,7 @@ def fetch_bsdf(scene: Scene, it: Interaction,
 
     bsdf = UberBSDF(
         diffuse=diffuse, glossy=glossy, kr=kr, kt=kt,
-        passthrough=torch.clamp(1.0 - opacity, 0.0, 1.0),
+        passthrough=m.fclip(1.0 - opacity, 0.0, 1.0),
         alpha=bx.roughness_to_alpha(roughness), eta=ior,
         conductor_eta=g(mats.conductor_eta), conductor_k=g(mats.conductor_k),
         rs_blend=g(mats.rs_blend), dist=dist, used=mats.used_lobes,

@@ -6,8 +6,12 @@ glossy reflection, specular reflection (dielectric or conductor Fresnel),
 specular transmission and opacity pass-through.  Every lobe is evaluated on
 every lane and masked; lobe sampling picks uniformly among the present lobes
 with u.x remapped to [0, 1).  The static scene-wide ``used`` mask skips
-lobes no material carries.  Gradients are not part of the port yet, so the
-JAX package's detached-sampling switch has no counterpart here.
+lobes no material carries.
+
+Differentiability: ``sample(..., detach=True)``, the default, is the
+detached estimator of inverse rendering: the sampled direction and the
+non-delta mixture pdf carry no gradient, the BSDF value ``f`` (and the
+delta lobes' weights) stay attached, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -128,9 +132,13 @@ def pdf(bsdf: UberBSDF, wo: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
     return p / num
 
 
-def sample(bsdf: UberBSDF, wo: torch.Tensor, u3: torch.Tensor) -> BSDFSample:
+def sample(bsdf: UberBSDF, wo: torch.Tensor, u3: torch.Tensor,
+           detach: bool = True) -> BSDFSample:
     """Sample the lobe mixture.  u3[..., 0] picks the lobe (and is
-    remapped); the rest drive the per-lobe direction sample."""
+    remapped); the rest drive the per-lobe direction sample.  With
+    ``detach`` the sampled ``wi`` and the non-delta pdf are cut from the
+    graph (the JAX package's ``stop_gradient``), so only ``f`` carries
+    parameter gradients."""
     msk = bsdf.lobe_masks()
     num_i = bsdf.num_lobes()
     num = torch.clamp_min(num_i, 1).to(torch.float32)
@@ -172,9 +180,11 @@ def sample(bsdf: UberBSDF, wo: torch.Tensor, u3: torch.Tensor) -> BSDFSample:
     wi = torch.where(pick(LOBE_DIFFUSE), wi_d, torch.where(
         pick(LOBE_GLOSSY), wi_g, torch.where(
             pick(LOBE_SPEC_REFL), wi_r, torch.where(pick(LOBE_SPEC_TRANS), wi_t, wi_p))))
+    if detach:
+        wi = wi.detach()
 
     is_spec = (lobe == LOBE_SPEC_REFL) | (lobe == LOBE_SPEC_TRANS) | (lobe == LOBE_PASSTHROUGH)
-    abs_ci = torch.clamp_min(bx.abs_cos_theta(wi), 1e-8)
+    abs_ci = m.fmax(bx.abs_cos_theta(wi), 1e-8)
 
     if u[LOBE_SPEC_REFL] or u[LOBE_SPEC_TRANS]:
         fr_r = bx.fresnel_dielectric(bx.cos_theta(wo), torch.ones_like(bsdf.eta), bsdf.eta)
@@ -199,6 +209,8 @@ def sample(bsdf: UberBSDF, wo: torch.Tensor, u3: torch.Tensor) -> BSDFSample:
 
     f_nd = evaluate(bsdf, wo, wi)
     pdf_nd = pdf(bsdf, wo, wi)
+    if detach:
+        pdf_nd = pdf_nd.detach()
     f = torch.where(pick(LOBE_SPEC_REFL), f_specr, torch.where(
         pick(LOBE_SPEC_TRANS), f_spect, torch.where(pick(LOBE_PASSTHROUGH), f_pass, f_nd)))
     pdf_out = torch.where(is_spec, 1.0 / num, pdf_nd)

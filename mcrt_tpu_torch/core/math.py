@@ -3,12 +3,39 @@
 Everything is batched over leading axes and branch-free; the formulas and
 their evaluation order follow the JAX package so that the two agree to
 float32 rounding.
+
+Clips go through ``fmax``, ``fmin`` and ``fclip``, not ``torch.clamp``, so
+that their gradients are the JAX package's too: at a tie with the bound,
+``jnp.maximum`` and ``jnp.clip`` pass half the gradient, ``torch.clamp``
+all of it, and parameters sit exactly on such bounds (roughness 1.0,
+diffuse 0, opaque texels).
 """
 from __future__ import annotations
 
 import torch
 
+from .types import device_constant
+
 F32_MAX = float(torch.finfo(torch.float32).max)
+
+
+def _scalar(c: float, like: torch.Tensor) -> torch.Tensor:
+    return device_constant((float(c),), like.device)[0]
+
+
+def fmax(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``jnp.maximum(x, c)``: a tie passes half the gradient to ``x``."""
+    return torch.maximum(x, _scalar(c, x))
+
+
+def fmin(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``jnp.minimum(x, c)``: a tie passes half the gradient to ``x``."""
+    return torch.minimum(x, _scalar(c, x))
+
+
+def fclip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``, the minimum of the maximum."""
+    return fmin(fmax(x, lo), hi)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -36,7 +63,7 @@ def length_sq(v: torch.Tensor) -> torch.Tensor:
 
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize: v/|v|; zero vectors stay finite."""
-    return v * torch.rsqrt(torch.clamp_min(torch.sum(v * v, dim=-1, keepdim=True), eps))
+    return v * torch.rsqrt(fmax(torch.sum(v * v, dim=-1, keepdim=True), eps))
 
 
 def lerp(a, b, t):
@@ -142,7 +169,7 @@ def safe_div(a, b, eps: float = 0.0):
 
 
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.clamp_min(x, 0.0))
+    return torch.sqrt(fmax(x, 0.0))
 
 
 def distance_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

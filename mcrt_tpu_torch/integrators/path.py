@@ -5,8 +5,10 @@ Each bounce runs one closest-hit query over the whole wavefront, shades
 every lane (emitter-hit accounting, next-event estimation with a uniform
 light pick, BSDF sampling and the geometric-offset spawn), then one any-hit
 query for the NEE shadow rays, whose contribution is added once visibility
-is known.  The bounce loop is a Python loop; the render runs under
-``torch.no_grad()``.
+is known.  The bounce loop is a Python loop, written with ``torch.where``
+and without in-place writes, so that autograd differentiates it: inverse
+rendering (``diff/``) runs it with gradients on, the progressive
+``Renderer`` under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -91,7 +93,7 @@ def _shade(scene, cfg, i, rays, hit, tp, stream, prev_pdf, prev_p,
         # q = clamp(max beta component), survivors reweighted by 1/q
         u_rr, stream = rng.next_1d(stream)
         if i >= cfg.rr_start_depth:
-            q = torch.clamp(torch.amax(new_beta, dim=-1), 0.05, 1.0)
+            q = m.fclip(torch.amax(new_beta, dim=-1), 0.05, 1.0)
             new_beta = new_beta / q[..., None]
             extend = extend & (u_rr < q)
 

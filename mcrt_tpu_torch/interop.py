@@ -9,10 +9,12 @@ what they build on the CUDA card unless the caller names another
 
 ``scene_from_numpy`` takes a flat dict keyed by dotted field paths of the
 reference's ``Scene`` (``"geometry.positions"``, ``"materials.diffuse"``,
-``"lights.tri_cdf"``, ``"textures.data"``, ``"instances.shape"``,
-``"center"``, ...).  The instance registry's face ranges are static
-fields of the reference, not array leaves: pass them as
+``"lights.tri_cdf"``, ``"textures.data"``, ``"textures.data_f"``,
+``"instances.shape"``, ``"center"``, ...).  The instance registry's face
+ranges are static fields of the reference, not array leaves: pass them as
 ``"instances.face_lo"`` and ``"instances.face_hi"`` beside its arrays.
+``params_from_numpy`` makes the leaf parameter tensors of inverse
+rendering from the same arrays the reference starts from.
 """
 from __future__ import annotations
 
@@ -63,7 +65,9 @@ def scene_from_numpy(leaves: dict[str, np.ndarray], device=None) -> Scene:
     geometry = Geometry(**{k: t(f"geometry.{k}", d) for k, d in _GEOMETRY_DTYPES.items()},
                         instanced=instances is not None)
     shapes = Shapes(**{k: t(f"shapes.{k}", d) for k, d in _SHAPE_DTYPES.items()})
-    textures = (TextureAtlas(**{k: t(f"textures.{k}", d) for k, d in _TEXTURE_DTYPES.items()})
+    textures = (TextureAtlas(**{k: t(f"textures.{k}", d) for k, d in _TEXTURE_DTYPES.items()},
+                             data_f=(t("textures.data_f", torch.float32)
+                                     if "textures.data_f" in leaves else None))
                 if "textures.data" in leaves else TextureAtlas.empty(device))
     return Scene(
         geometry=geometry,
@@ -76,6 +80,14 @@ def scene_from_numpy(leaves: dict[str, np.ndarray], device=None) -> Scene:
         radius=t("radius", torch.float32),
         instances=instances,
     )
+
+
+def params_from_numpy(params: dict[str, np.ndarray], device=None) -> dict[str, torch.Tensor]:
+    """Leaf float32 tensors that require grad, one per array: the starting
+    parameters of ``diff.estimators`` views and optimizers."""
+    device = default_device(device)
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device,
+                            requires_grad=True) for k, v in params.items()}
 
 
 def camera_from_numpy(leaves: dict[str, np.ndarray], device=None) -> PinholeCamera:

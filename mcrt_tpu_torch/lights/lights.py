@@ -108,7 +108,7 @@ def sample_li(scene: Scene, light_idx: torch.Tensor, ref_p: torch.Tensor,
         is_pt[..., None], lpos, torch.where(is_disk[..., None], p_disk, p_mesh)))
     n = torch.where(is_mesh[..., None], n_mesh, ldir)
     to_l = p - ref_p
-    d2 = torch.clamp_min(m.length_sq(to_l), 1e-12)
+    d2 = m.fmax(m.length_sq(to_l), 1e-12)
     dist = torch.sqrt(d2)
     wi = torch.where(is_dir[..., None], wi_dir, to_l / dist[..., None])
     cos_l = m.dot(n, -wi)

@@ -3,7 +3,9 @@
 ``render_sample`` traces one sample per pixel: the frame-wide Halton jitter,
 pinhole rays in Morton pixel order, a per-pixel sample stream and the
 integrator (the path tracer or BDPT), then the radiance back in row-major
-pixel order.
+pixel order.  ``render_sample`` runs with autograd on: the path tracer is
+differentiable with respect to the scene's tensors (inverse rendering,
+``diff/``); BDPT is refused when a scene tensor requires grad.
 ``render_frame_fn`` folds ``samples_per_pass`` such samples into the
 accumulator, and ``Renderer`` owns the scene, the intersector and the
 accumulator on one device.  PyTorch runs eagerly, so where the JAX package
@@ -11,6 +13,7 @@ jits one program per frame this is a Python loop over the bounces.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time as _time
 
@@ -20,7 +23,7 @@ import torch
 from .accel import Intersector, build_intersector
 from .camera.pinhole import PinholeCamera, pixel_uv
 from .config import IntegratorType, RenderConfig
-from .core.types import Rays, default_device
+from .core.types import Rays, TensorRecord, default_device
 from .film.accumulate import Accumulator, accumulate
 from .integrators import bdpt as bdpt_integrator
 from .integrators import path as path_integrator
@@ -86,10 +89,26 @@ def _pixel_order_tensors(w: int, h: int, device: torch.device):
             torch.from_numpy(inv).long().to(device))
 
 
+def requires_grad(record) -> bool:
+    """Whether any tensor of a (nested) tensor record requires grad."""
+    if isinstance(record, torch.Tensor):
+        return record.requires_grad
+    if isinstance(record, TensorRecord):
+        return any(requires_grad(getattr(record, f.name))
+                   for f in dataclasses.fields(record))
+    return False
+
+
 def render_sample(scene: Scene, camera: PinholeCamera, frame: int,
                   cfg: RenderConfig, intersector: Intersector):
     """One sample-per-pixel wavefront: ((H*W, 3) radiance in row-major pixel
-    order, (2,) jitter used)."""
+    order, (2,) jitter used).  Differentiable under the path tracer."""
+    if (cfg.integrator.type == IntegratorType.BDPT and torch.is_grad_enabled()
+            and requires_grad(scene)):
+        raise NotImplementedError(
+            "BDPT gradients are not ported yet (ROADMAP, Queue 1: BDPT gradients): "
+            "its subpath vertices are written in place and its t=1 splat has no "
+            "backward; differentiate the path tracer or render under torch.no_grad()")
     w, h = cfg.width, cfg.height
     device = camera.position.device
     jitter = frame_jitter(frame, device)

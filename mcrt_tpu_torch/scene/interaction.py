@@ -139,4 +139,4 @@ def spawn_shadow_ray(it: Interaction, wi: torch.Tensor, dist: torch.Tensor,
     side = torch.where(m.dot(it.ng, wi) >= 0.0, 1.0, -1.0)
     o = it.p + it.ng * (side * offset)[..., None]
     return Rays(o=o, d=wi, tmin=torch.zeros_like(dist),
-                tmax=torch.clamp_min(dist - 2.0 * offset, 0.0), active=active)
+                tmax=m.fmax(dist - 2.0 * offset, 0.0), active=active)

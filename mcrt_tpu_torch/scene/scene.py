@@ -45,8 +45,13 @@ def _t(a, dtype, device):
 
 def take_clip(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, idx, axis=0, mode="clip")``: row gather with the
-    index clamped into range."""
-    return table[idx.clamp(0, table.shape[0] - 1).long()]
+    index clamped into range.  ``index_select``, not ``table[idx]``: its
+    backward is an ``index_add_`` (atomic on the card), where indexing's
+    sorts the indices and walks each one's duplicates in turn, which took
+    over a second a gradient step with 262,144 lanes gathering from a few
+    material rows."""
+    flat = idx.clamp(0, table.shape[0] - 1).reshape(-1).long()
+    return table.index_select(0, flat).reshape(idx.shape + table.shape[1:])
 
 
 @dataclass
@@ -246,8 +251,10 @@ class Instances(TensorRecord):
 class TextureAtlas(TensorRecord):
     """Every texture and its mip chain in one RGBA8 texel buffer, with one
     descriptor row per mip level, so that LOD selection is a gather at
-    [level, texture].  (Float texels for texture gradients wait for inverse
-    rendering.)"""
+    [level, texture].  ``data_f``, when set, is a float32 copy of the
+    texels that fetches read instead of ``data``: the texture parameters
+    of inverse rendering (``diff.estimators.with_float_texels``), through
+    which texel gradients flow.  The u8 buffer stays the storage format."""
 
     data: torch.Tensor  # (4, TEXELS) u8 RGBA texels, transposed
     offset: torch.Tensor  # (MAX_MIPS, T) i32 texel offset per [level, texture]
@@ -255,6 +262,7 @@ class TextureAtlas(TensorRecord):
     height: torch.Tensor  # (MAX_MIPS, T) i32
     mips: torch.Tensor  # (T,) i32 number of mip levels
     wrap: torch.Tensor  # (T,) i32 wrap mode (0 repeat, 1 clamp, 2 mirror, 3 border)
+    data_f: torch.Tensor | None = None  # (4, TEXELS) f32 texels in [0, 1]
 
     @classmethod
     def empty(cls, device=None):

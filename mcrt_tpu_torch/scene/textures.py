@@ -205,10 +205,15 @@ def _wrap_coord(x: torch.Tensor, n: torch.Tensor, mode: torch.Tensor) -> torch.T
 
 
 def _fetch_texel(atlas: TextureAtlas, off, w, h, x, y, mode) -> torch.Tensor:
-    """(4, N) texels in [0, 1] at integer coordinates."""
+    """(4, N) texels in [0, 1] at integer coordinates: the float texels
+    ``data_f`` where the atlas has them (differentiable), else the u8
+    texels scaled."""
     xin = (x >= 0) & (x < w) & (y >= 0) & (y < h)
-    idx = off + _wrap_coord(y, h, mode) * w + _wrap_coord(x, w, mode)
-    texel = atlas.data[:, idx.long()].to(torch.float32) / 255.0
+    idx = (off + _wrap_coord(y, h, mode) * w + _wrap_coord(x, w, mode)).long()
+    if atlas.data_f is not None:
+        texel = atlas.data_f.index_select(1, idx)  # backward: index_add_ (take_clip)
+    else:
+        texel = atlas.data[:, idx].to(torch.float32) / 255.0
     border = (mode == WRAP_BORDER) & ~xin
     return torch.where(border[None, :], 0.0, texel)
 

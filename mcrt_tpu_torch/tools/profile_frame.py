@@ -1,7 +1,9 @@
-"""Where one progressive frame of the main path spends its time, on a GPU.
+"""Where one progressive frame of the main path, or one gradient step,
+spends its time, on a GPU.
 
     python -m mcrt_tpu_torch.tools.profile_frame [SCENE] [--integrator bdpt]
         [--out chiprun_out]
+    python -m mcrt_tpu_torch.tools.profile_frame [SCENE] --grad [--out DIR]
 
 It renders SCENE through ``Renderer`` at 512x512, 8 bounces, Sobol, SAH
 blocks, with the path tracer (the default) or BDPT: one of the configurations
@@ -31,6 +33,17 @@ frame:
    ran on the card: kernels, copies, fills) and the busy share, and the
    kernels with the most device time.  The full table goes to
    ``<out>/profile_frame_<SCENE>_<INTEGRATOR>.txt``.
+
+With ``--grad`` it profiles an inverse-rendering step instead, as
+``chip_smoke.py``'s ``[grad]`` phase runs it: ``full_params``, 1 spp, the
+mean squared error against a render of other samples, ``torch.optim.Adam``
+(lr 0.05).  After one warm-up step: the host syncs of one step; ``STEPS``
+steps, each split by ``torch.cuda.synchronize()`` into forward (the loss),
+backward (``loss.backward()``) and optimizer (``Adam.step``) times, with the
+median of each and the peak memory; then ``torch.profiler`` over one
+unsynchronised step: wall and device time, the busy share, and the kernels
+with the most device time (full table in
+``<out>/profile_frame_<SCENE>_grad.txt``).
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 SIZE, DEPTH, FRAMES = 512, 8, 5
+STEPS = 3  # synced gradient steps under --grad
 SCENES = ("sphere_field", "textured_hall", "sphere_field_instanced")
 
 
@@ -77,18 +91,116 @@ def sync_sites(fn) -> collections.Counter:
     return sites
 
 
+def device_share(run, label, out_path):
+    """``run()`` once under ``torch.profiler``, unsynchronised: prints the
+    wall time, the device time (the summed duration of every event on the
+    card: kernels, copies, fills), the busy share and the 15 kernels with
+    the most device time; writes the full table to ``out_path``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            on_card[e.name][0] += e.time_range.elapsed_us() / 1e3
+            on_card[e.name][1] += 1
+    dev_ms = sum(ms for ms, _ in on_card.values())
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms, "
+          f"busy {dev_ms / wall_ms:.3f}, "
+          f"{sum(n for _, n in on_card.values())} device events")
+    for name, (ms, n) in sorted(on_card.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"[profile]   {ms:9.3f} ms  {n:6d} launches  {name[:90]}")
+    table = prof.key_averages()
+    sort_by = ("self_device_time_total" if hasattr(table[0], "self_device_time_total")
+               else "self_cuda_time_total")
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write(table.table(sort_by=sort_by, row_limit=200))
+    print(f"[profile] full table: {out_path}")
+
+
+def grad_main(args) -> int:
+    """``--grad``: one inverse-rendering step split into forward, backward
+    and optimizer time (module docstring)."""
+    from ..accel import build_intersector
+    from ..config import (BuilderType, BVHConfig, IntegratorConfig, RenderConfig,
+                          SamplerConfig, SamplerType)
+    from ..diff import estimators
+    from ..parallel.render import render_spp_batch
+    from ..scene import builders
+    from .card import card_line
+
+    device = torch.device("cuda", 0)
+    cfg = RenderConfig(width=SIZE, height=SIZE, spp=1,
+                       sampler=SamplerConfig(type=SamplerType.SOBOL),
+                       bvh=BVHConfig(builder=BuilderType.SAH),
+                       integrator=IntegratorConfig(max_depth=DEPTH))
+    scene, camera = getattr(builders, args.scene)(device=device)
+    isect = build_intersector(scene, cfg)
+    view = estimators.full_params()
+    loss_fn = estimators.render_loss_fn(camera, cfg, isect, view)
+    with torch.no_grad():
+        target = render_spp_batch(scene, camera, [1000], cfg, isect)
+    params = {k: v.detach().clone().requires_grad_() for k, v in view.get(scene).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=0.05)
+    print(f"{args.scene}: {SIZE}^2, {DEPTH} bounces, 1 spp, full_params; card {card_line()}")
+
+    def step(sync=False):
+        marks = []
+
+        def mark():
+            if sync:
+                torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        mark()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, scene, [0], target)
+        mark()
+        loss.backward()
+        mark()
+        opt.step()
+        mark()
+        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    step(sync=True)  # warm-up
+    sites = sync_sites(step)
+    torch.cuda.synchronize()
+    print(f"[syncs] {sum(sites.values())} synchronizing calls in one step")
+    for site, n in sites.most_common():
+        print(f"[syncs]   {n:5d}  {site}")
+    torch.cuda.reset_peak_memory_stats(device)
+    parts = [step(sync=True) for _ in range(STEPS)]
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    for name, i in (("forward", 0), ("backward", 1), ("optimizer", 2)):
+        print(f"[step] {name} {statistics.median(p[i] for p in parts):.2f} ms (median of "
+              f"{STEPS}: " + ", ".join(f"{p[i]:.1f}" for p in parts) + ")")
+    print(f"[step] a step {statistics.median(sum(p) for p in parts):.2f} ms, peak memory "
+          f"{peak:.2f} GiB")
+    device_share(step, "one step",
+                 os.path.join(args.out, f"profile_frame_{args.scene}_grad.txt"))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("scene", nargs="?", default="sphere_field", choices=SCENES)
     ap.add_argument("--integrator", default="path", choices=("path", "bdpt"))
+    ap.add_argument("--grad", action="store_true",
+                    help="profile a gradient step of the path tracer instead of a frame")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: needs a CUDA device", file=sys.stderr)
         return 2
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    if args.grad:
+        return grad_main(args)
 
     from ..accel import Intersector
     from ..config import (BuilderType, BVHConfig, IntegratorConfig, IntegratorType,
@@ -187,31 +299,8 @@ def main(argv=None) -> int:
             print(f"[stages]   occlusion chunk {i}: {ms:.2f} ms ({live} live shadow rays)")
 
     # 4. device share over two unsynced frames
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        renderer.step(2)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            on_card[e.name][0] += e.time_range.elapsed_us() / 1e3
-            on_card[e.name][1] += 1
-    dev_ms = sum(ms for ms, _ in on_card.values())
-    print(f"[profile] 2 frames: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms, "
-          f"busy {dev_ms / wall_ms:.3f}, "
-          f"{sum(n for _, n in on_card.values())} device events")
-    for name, (ms, n) in sorted(on_card.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"[profile]   {ms:9.3f} ms  {n:6d} launches  {name[:90]}")
-    table = prof.key_averages()
-    sort_by = ("self_device_time_total" if hasattr(table[0], "self_device_time_total")
-               else "self_cuda_time_total")
-    os.makedirs(args.out, exist_ok=True)
-    path_out = os.path.join(args.out, f"profile_frame_{args.scene}_{args.integrator}.txt")
-    with open(path_out, "w") as f:
-        f.write(table.table(sort_by=sort_by, row_limit=200))
-    print(f"[profile] full table: {path_out}")
+    device_share(lambda: renderer.step(2), "2 frames",
+                 os.path.join(args.out, f"profile_frame_{args.scene}_{args.integrator}.txt"))
     return 0
 
 

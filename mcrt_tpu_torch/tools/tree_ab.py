@@ -75,7 +75,7 @@ def _frame_renderer(scene, camera, device):
 def _flat_cases(device, cases):
     from ..accel import blocked, kernels
     from ..scene.builders import sphere_field
-    from .wavefronts import inputs_of_a_frame, wavefronts
+    from .wavefronts import inputs_of, wavefronts
 
     tile, group = blocked.TILE, blocked.GROUP
     scene, camera = sphere_field(device=device)
@@ -91,14 +91,14 @@ def _flat_cases(device, cases):
                                      group)])
         cases[f"K3 {wf}"] = ("K3", [(counts, packed, lists, accel.tri, accel.aabb, tile,
                                      group)])
-    cases["K1 frame"] = ("K1", inputs_of_a_frame(_frame_renderer(scene, camera, device),
-                                                 ["K1"])["K1"])
+    renderer = _frame_renderer(scene, camera, device)
+    cases["K1 frame"] = ("K1", inputs_of(lambda: renderer.step(1), ["K1"])["K1"])
 
 
 def _dense_cases(device, cases):
     from ..accel import SORT_MIN_BLOCKS, blocked
     from ..scene.builders import textured_hall
-    from .wavefronts import inputs_of_a_frame, wavefronts
+    from .wavefronts import inputs_of, wavefronts
 
     scene, camera = textured_hall(device=device)
     accel = blocked.build_blocked(scene.geometry)
@@ -109,7 +109,8 @@ def _dense_cases(device, cases):
         packed, _ = blocked._sorted_table(rays, accel, accel.num_blocks >= SORT_MIN_BLOCKS)
         cases[f"K4 {wf}"] = ("K4", [(packed, accel.tri)])
         cases[f"K5 {wf}"] = ("K5", [(packed, accel.tri)])
-    frame = inputs_of_a_frame(_frame_renderer(scene, camera, device), ["K4", "K5"])
+    renderer = _frame_renderer(scene, camera, device)
+    frame = inputs_of(lambda: renderer.step(1), ["K4", "K5"])
     cases["K4 frame"] = ("K4", frame["K4"])
     cases["K5 frame"] = ("K5", frame["K5"])
 

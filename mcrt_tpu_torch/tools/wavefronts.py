@@ -1,6 +1,7 @@
 """Kernel inputs at the main path's shapes, for ``chip_smoke.py`` and
 ``tools/tree_ab.py``: the 512x512 primary and bounce wavefronts, and the
-inputs that a kernel is handed during one frame of a ``Renderer``."""
+inputs that a kernel is handed during one frame of a ``Renderer`` or any
+other call (a gradient step)."""
 from __future__ import annotations
 
 import torch
@@ -33,14 +34,13 @@ def wavefronts(camera, intersect, device, width: int = WIDTH, height: int = HEIG
     return {"primary": primary, "bounce": bounce}
 
 
-def inputs_of_a_frame(renderer, ids) -> dict[str, list[tuple]]:
-    """``renderer.step(1)`` with the wrappers of the kernels ``ids`` (keys
-    of ``kernels.WRAPPERS``) wrapped for that frame: returns, for each id,
-    the arguments of every launch in it, their tensors cloned (the frame
-    frees them).  The wrapper only keeps the arguments and calls the
-    kernel's own wrapper, which launches and counts as always; the queries
-    look their wrappers up in ``kernels`` at each call, so every call in
-    the frame is seen."""
+def inputs_of(run, ids) -> dict[str, list[tuple]]:
+    """``run()`` with the wrappers of the kernels ``ids`` (keys of
+    ``kernels.WRAPPERS``) wrapped for that call: returns, for each id, the
+    arguments of every launch in it, their tensors cloned (the call frees
+    them).  The wrapper only keeps the arguments and calls the kernel's own
+    wrapper, which launches and counts as always; the queries look their
+    wrappers up in ``kernels`` at each call, so every launch is seen."""
     from ..accel import kernels
 
     kept = {k: [] for k in ids}
@@ -59,7 +59,7 @@ def inputs_of_a_frame(renderer, ids) -> dict[str, list[tuple]]:
     for k, fn in own.items():
         setattr(kernels, fn.__name__, keeping(k))
     try:
-        renderer.step(1)
+        run()
     finally:
         for fn in own.values():
             fn.launches = getattr(kernels, fn.__name__).launches

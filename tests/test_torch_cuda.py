@@ -19,7 +19,9 @@ enters, so a ray may differ (a flag, a slot, an instance, or t beyond rtol
 never fewer than 2 rays are allowed; the K8 chains
 are bit-equal to ``chain_plain`` (the same single roundings) and the K9
 products lie within the dot-product bound ``2 * k * 2**-24 * (|a| @ |b|)``
-of ``matmul_plain``.
+of ``matmul_plain``.  Card gradients of rendered samples are held to CPU
+gradients within ``tools/grad_check.py``'s tolerance (atomic scatter-adds
+reorder the card's sums).
 """
 import os
 import shutil
@@ -35,7 +37,8 @@ from mcrt_tpu_torch.accel import kernels
 from mcrt_tpu_torch.accel import two_level as ttl
 from mcrt_tpu_torch.core.types import Rays
 from mcrt_tpu_torch.scene.builders import (cornell_box, glass_gallery, instanced_boxes,
-                                           sphere_field)
+                                           sphere_field, textured_hall)
+from mcrt_tpu_torch.tools import grad_check
 from mcrt_tpu_torch.tools import vpu_bench
 
 # The tier-1 run spreads test files over several worker processes on a few
@@ -516,6 +519,25 @@ def test_cuda_render_matches_cpu_render(cuda_device):
             for d in (cuda_device, "cpu")]
     close = torch.isclose(imgs[0], imgs[1], rtol=1e-3, atol=1e-4).all(dim=-1)
     assert close.float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder, view, size, spp, float_texels", [
+    (cornell_box, "material_params", 16, 16, False),
+    (cornell_box, "light_params", 16, 16, False),
+    (textured_hall, "texture_params", 12, 4, True)], ids=["material", "light", "texels"])
+def test_card_gradients_match_cpu_gradients(cuda_device, builder, view, size, spp,
+                                            float_texels):
+    """Gradients of the image sum at ``tests/test_torch_diff.py``'s sizes
+    (depth 2), the card's against the CPU's, over the (sample, pixel) pairs
+    whose forward radiance agrees (at least 99%), within
+    ``grad_check.GRAD_TOL``."""
+    share, grads = grad_check.device_parity(builder, view, size, spp, 2, cuda_device,
+                                            float_texels)
+    assert share >= grad_check.MIN_AGREE
+    for k, (err, scale, ok) in grad_check.compare(grads).items():
+        assert ok, (k, err, scale)
+    assert any(float(a.abs().sum()) > 0 for a, _ in grads.values())
 
 
 def _soup(n_tris, seed, device):
