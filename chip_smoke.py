@@ -163,6 +163,42 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``cornell_box`` (material and light parameters) and ``textured_hall``
    (texels), over the (sample, pixel) pairs whose forward radiance agrees
    (at least 99%), within ``grad_check.GRAD_TOL``.
+8. Multi-GPU (``parallel/``), each phase with the launch counters set to
+   0 just before and read just after.  A one-rank NCCL group started by
+   the port's own ``parallel.mesh.init_process_group`` and
+   ``make_mesh()`` (NCCL takes one rank a card, so one card gives world
+   size 1).  ``[mesh_render]``: ``make_sharded_render`` on
+   ``sphere_field`` at 512x512, depth 8, ``MESH_FRAMES`` samples against
+   ``render_spp_batch`` without a mesh, equal (or, where the spp mean's
+   order differs, within rtol 1e-6, said so), both timed in turns.
+   ``[mesh_grad]``: the sharded ``make_train_step`` against the
+   unsharded one at ``[grad]``'s configuration: the loss within rtol
+   1e-6, the gradients within ``grad_check.GRAD_TOL``.  ``[ring1]``:
+   ``build_sharded_scene(sphere_field)`` (one shard) rendered through the
+   ring at 512x512, depth 8: its mean against the unsharded one at the
+   parity share, one sample under the sync check, then every K1 launch of
+   one sample equal to ``cull_plain`` and every K2/K3 launch within the
+   walks' tolerance.  ``[ring4]``: ``shard_faces`` and
+   ``_build_shard_accels`` of ``sphere_field`` at n = 4, the ring's own
+   steps (``closest_step``, ``occluded_step``) over the four shards in
+   ring order on the primary and bounce wavefronts, against the
+   unsharded queries (hit flags within the walks' tolerance, t at rtol
+   1e-5 where both hit), each shard's query time and their sum beside
+   the unsharded query's, then every K1-K3 launch of the four steps
+   against the plain versions.  ``[mesh_multi]``: with two cards or
+   more, min(4, count) NCCL ranks run the ring render and the sharded
+   render and step against rank 0's single-card results; with one card
+   it prints that it waits.
+9. ``[cli]``: ``python -m mcrt_tpu_torch info`` as a subprocess (it must
+   name the card and its memory); ``render --scene textured_hall`` at
+   512x512, ``CLI_SPP`` spp, depth 8 (exit 0, its wall time and the
+   Mrays/s it prints), its PNG decoded by ``decode_png`` against
+   ``to_srgb_u8`` of an in-process ``Renderer`` render of the same
+   configuration (0.99 of pixels within 1 level), the same command with
+   ``--progressive CLI_PROGRESSIVE`` (it must write twice); then the tone
+   map and the bilateral denoiser at 512x512 on the card, each timed,
+   against the same formulas on the CPU from the same resolved image
+   (rtol 1e-5 / atol 1e-6).
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
@@ -190,7 +226,7 @@ The second-to-last stdout line is the per-kernel JSON record (``ms``,
 of seven of a main path's eight bounces, K8's float32 chain's and K9's at
 k = 128; ``launches`` are the counts of the main path that runs the
 kernel, ``vpu_bench.main()`` for K8/K9, and ``launches_by_path`` every
-phase's count of phases 4 to 7; each row's ``variants`` map holds
+phase's count of phases 4 to 9; each row's ``variants`` map holds
 every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by`` and ``library_ms``, and for K8 (float32, bfloat16) and K9
 (k=8, k=128) also ``issue_floor_ms`` and ``sm_mhz``), the last one
@@ -1540,6 +1576,477 @@ def bdpt_phases(scene, camera, device):
     }
 
 
+MESH_FRAMES = 4  # samples of [mesh_render] and [ring1]
+RING_SHARDS = 4  # shards of [ring4], run in ring order in one process
+CLI_SPP, CLI_PROGRESSIVE = 8, 4  # [cli]: samples, and the interval of its progressive run
+
+
+def mesh_render_phase(scene, camera, mesh, device):
+    """``[mesh_render]``: ``make_sharded_render`` over the one-rank mesh
+    against ``render_spp_batch`` without a mesh (``sphere_field`` 512x512,
+    depth 8, ``MESH_FRAMES`` samples), timed in turns (unsharded, sharded,
+    sharded, unsharded) after one sharded warm-up call, with the launch
+    counters around one sharded call.
+    Returns (launch counts, the unsharded mean)."""
+    import torch
+
+    from mcrt_tpu_torch.accel import build_intersector, kernels
+    from mcrt_tpu_torch.parallel.render import make_sharded_render, render_spp_batch
+    from mcrt_tpu_torch.tools.card import card_line
+
+    label = "mesh_render"
+    cfg = main_cfg(spp=MESH_FRAMES)
+    isect = build_intersector(scene, cfg)
+    frames = list(range(MESH_FRAMES))
+    fn = make_sharded_render(scene, camera, cfg, isect, mesh)
+    fn(scene, frames)  # warm-up: the first collectives start the group's communicators
+    ref_ms, _, ref = timed(lambda: render_spp_batch(scene, camera, frames, cfg, isect), 1)
+    kernels.reset_launch_counts()
+    sh_ms, _, img = timed(lambda: fn(scene, frames), 1)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    sh_ms2, _, img2 = timed(lambda: fn(scene, frames), 1)
+    ref_ms2, _, _ = timed(lambda: render_spp_batch(scene, camera, frames, cfg, isect), 1)
+    check_launches(label, counts, ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7"))
+    equal = torch.equal(img, ref) and torch.equal(img2, ref)
+    close = all(torch.allclose(x, ref, rtol=1e-6, atol=0.0) for x in (img, img2))
+    log(f"[{label}] mesh {tuple(mesh.mesh.shape)}, {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, "
+        f"{MESH_FRAMES} samples: sharded {sh_ms:.2f} / {sh_ms2:.2f} ms, unsharded "
+        f"{ref_ms:.2f} / {ref_ms2:.2f} ms (in turns: unsharded, sharded, sharded, "
+        f"unsharded); overhead {(sh_ms + sh_ms2) / (ref_ms + ref_ms2) - 1.0:+.4f}; equal to "
+        f"the unsharded mean: {equal}"
+        + ("" if equal else f", within rtol 1e-6: {close} (the spp mean's order differs)")
+        + f"; launches {counts}; card {card_line()}")
+    if not (equal or close):
+        raise AssertionError(f"{label}: the sharded render departs from the unsharded one")
+    return counts, ref
+
+
+def mesh_grad_phase(scene, camera, mesh, device):
+    """``[mesh_grad]``: the sharded ``make_train_step`` over the one-rank
+    mesh against the unsharded step at ``[grad]``'s configuration
+    (``sphere_field`` 512x512, depth 8, 1 spp, ``full_params``): the loss
+    within rtol 1e-6, every gradient within ``grad_check.GRAD_TOL``; both
+    steps timed in turns after one sharded warm-up step."""
+    import torch
+
+    from mcrt_tpu_torch.accel import build_intersector, kernels
+    from mcrt_tpu_torch.diff import estimators
+    from mcrt_tpu_torch.parallel.render import make_train_step, render_spp_batch
+    from mcrt_tpu_torch.tools import grad_check
+    from mcrt_tpu_torch.tools.card import card_line
+
+    label = "mesh_grad"
+    cfg = main_cfg(spp=1)
+    isect = build_intersector(scene, cfg)
+    view = estimators.full_params()
+    with torch.no_grad():
+        target = render_spp_batch(scene, camera, [1000], cfg, isect)
+    plain = make_train_step(camera, cfg, isect, None, view.get, view.set)
+    sharded = make_train_step(camera, cfg, isect, mesh, view.get, view.set)
+    sharded(scene, [0], target)  # warm-up, as in [mesh_render]
+    ref_ms, _, (loss0, g0) = timed(lambda: plain(scene, [0], target), 1)
+    kernels.reset_launch_counts()
+    sh_ms, _, (loss, g) = timed(lambda: sharded(scene, [0], target), 1)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    sh_ms2, _, _ = timed(lambda: sharded(scene, [0], target), 1)
+    ref_ms2, _, _ = timed(lambda: plain(scene, [0], target), 1)
+    check_launches(label, counts, ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7"))
+    check_grads(label, g, ("diffuse", "roughness", "intensity"))
+    worst = []
+    for k, ref in g0.items():
+        rtol, atol = grad_check.GRAD_TOL[k]
+        scale = ref.abs().max().item()
+        err = (g[k] - ref).abs()
+        ok = bool((err <= rtol * ref.abs() + atol * scale).all())
+        worst.append(f"{k} max |sharded - unsharded| {err.max().item():.3e} of max |g| "
+                     f"{scale:.4e} ({'within' if ok else 'OUTSIDE'} rtol {rtol:g} + {atol:g} max)")
+        if not ok:
+            raise AssertionError(f"{label}: the sharded step's {k} gradient departs")
+    loss_ok = bool(torch.isclose(loss, loss0, rtol=1e-6, atol=0.0))
+    log(f"[{label}] {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, 1 spp, full_params: sharded step "
+        f"{sh_ms:.2f} / {sh_ms2:.2f} ms, unsharded {ref_ms:.2f} / {ref_ms2:.2f} ms (in turns); "
+        f"loss {loss.item():.6e} against {loss0.item():.6e} (rtol 1e-6: {loss_ok}); "
+        + "; ".join(worst) + f"; launches {counts}; card {card_line()}")
+    if not loss_ok:
+        raise AssertionError(f"{label}: the sharded loss departs from the unsharded one")
+    return counts
+
+
+def ring1_phase(scene, camera, mesh, device, ref):
+    """``[ring1]``: ``build_sharded_scene(sphere_field)`` on the one-rank
+    mesh (one shard: every face, reordered by its Morton key, in one blocked
+    accel), rendered by ``render_spp_batch`` over the mesh at 512x512,
+    depth 8, ``MESH_FRAMES`` samples with the launch counters around it;
+    the mean against the unsharded one at the parity share; one more
+    sample under the sync check; then one sample more for each kernel
+    group holds every K1-K3 launch against the plain versions."""
+    import torch
+
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.parallel.render import render_spp_batch
+    from mcrt_tpu_torch.parallel.ring import build_sharded_scene
+    from mcrt_tpu_torch.renderer import render_sample
+    from mcrt_tpu_torch.tools.card import card_line
+
+    label = "ring1"
+    cfg = main_cfg(spp=MESH_FRAMES)
+    t0 = time.perf_counter()
+    sscene, ring = build_sharded_scene(scene, mesh)
+    build_s = time.perf_counter() - t0
+    frames = list(range(MESH_FRAMES))
+    kernels.reset_launch_counts()
+    ms, _, img = timed(lambda: render_spp_batch(sscene, camera, frames, cfg, ring, mesh), 1)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_launches(label, counts, ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7"))
+    log(f"[{label}] one shard of {ring.accel.num_blocks} blocks, built in {build_s:.2f} s; "
+        f"{MESH_FRAMES} samples {ms:.2f} ms ({ms / MESH_FRAMES:.2f} ms/spp), launches "
+        f"{counts}; card {card_line()}")
+    img, ref = img.reshape(-1, 3), ref.reshape(-1, 3)
+    if not bool(torch.isfinite(img).all()) or not img.mean().item() > 0.0:
+        raise AssertionError(f"{label}: image not finite/positive")
+    agreement(label, "the ring's mean against the unsharded mean", img, ref)
+    frame = partial(render_sample, sscene, camera, MESH_FRAMES, cfg, ring)
+    frames_timed(label, [frame])
+    cull_frame_phase(frame, label)
+    walk_frame_phase(frame, label, ids=("K2", "K3"))
+    return counts
+
+
+def ring4_phase(scene, camera, device):
+    """``[ring4]``: the 4-shard ring in one process.  ``shard_faces`` and
+    ``_build_shard_accels`` of ``sphere_field`` at n = 4 (every shard's
+    tables on the card); on the 512x512 primary and bounce wavefronts, the
+    ring's own steps (``closest_step``, ``occluded_step``) over the four
+    shards in ring order, after the one coherence sort with the global
+    bounds, against the unsharded ``intersect_blocked`` /
+    ``occluded_blocked`` on the same rays: hit flags within the walks'
+    tolerance and t at rtol 1e-5 where both hit.  Each shard's query time,
+    their sum and the unsharded query's time are printed; one more run of
+    the four steps holds every K1-K3 launch against the plain versions.
+    Returns the launch counts of one untimed pass of the four steps on
+    each wavefront, read with nothing else in between."""
+    import torch
+
+    from mcrt_tpu_torch.accel import build_intersector, kernels
+    from mcrt_tpu_torch.accel.blocked import _coherence_order
+    from mcrt_tpu_torch.parallel.ring import (_build_shard_accels, _take, _unsort,
+                                              closest_step, no_hit, occluded_step,
+                                              shard_faces)
+    from mcrt_tpu_torch.tools.card import card_line
+    from mcrt_tpu_torch.tools.wavefronts import wavefronts
+
+    label = "ring4"
+    t0 = time.perf_counter()
+    geom, _ = shard_faces(scene.geometry, RING_SHARDS, return_face_map=True)
+    fpad = geom.indices.shape[0] // RING_SHARDS
+    acc = _build_shard_accels(geom, RING_SHARDS, fpad, device=device)
+    log(f"[{label}] {RING_SHARDS} shards of {fpad} faces, {acc.num_blocks} blocks each "
+        f"(padded; real blocks {[int((a[:, 0] == a[:, 0]).sum()) for a in acc.aabb]}), built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    whole = build_intersector(scene, main_cfg())
+    wfs = wavefronts(camera, lambda r: whole.intersect(scene, r), device)
+
+    def ring_closest(rays, order, each=None):
+        rays_s, best = _take(rays, order), no_hit(rays.n, device)
+        for s in range(RING_SHARDS):
+            if each is None:
+                best = closest_step(geom, acc, s, fpad, rays_s, best)
+            else:
+                ms, _, best = timed(partial(closest_step, geom, acc, s, fpad, rays_s, best),
+                                    KERNEL_REPS)
+                each.append(ms)
+        return _unsort(best, order)
+
+    def ring_occluded(rays, order, each=None):
+        rays_s = _take(rays, order)
+        blocked = torch.zeros((rays.n,), dtype=torch.bool, device=device)
+        for s in range(RING_SHARDS):
+            if each is None:
+                rays_s, blocked = occluded_step(geom, acc, s, fpad, rays_s, blocked)
+            else:
+                ms, _, (rays_s, blocked) = timed(
+                    partial(occluded_step, geom, acc, s, fpad, rays_s, blocked), KERNEL_REPS)
+                each.append(ms)
+        out = torch.empty_like(blocked)
+        out[order] = blocked
+        return out
+
+    orders = {wf: _coherence_order(rays, acc.bounds) for wf, rays in wfs.items()}
+    kernels.reset_launch_counts()  # the ring's steps alone: one untimed pass a wavefront
+    results = {wf: (ring_closest(rays, orders[wf]), ring_occluded(rays, orders[wf]))
+               for wf, rays in wfs.items()}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = RING_SHARDS * len(wfs)
+    log(f"[{label}] launches of the ring steps, one pass on each wavefront: {counts} "
+        f"(expected K1 {2 * steps}, K2 {steps}, K3 {steps}: one cull and one walk a step)")
+    check_launches(label, counts, ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7"))
+    if (counts["K1"], counts["K2"], counts["K3"]) != (2 * steps, steps, steps):
+        raise AssertionError(f"{label}: the ring's steps launched {counts}")
+    for wf, rays in wfs.items():
+        order = orders[wf]
+        live = rays.active
+        hit, blocked = results[wf]
+        times = {"closest": [], "occluded": []}
+        ring_closest(rays, order, times["closest"])
+        ring_occluded(rays, order, times["occluded"])
+        ref_c_ms, _, ref_hit = timed(lambda: whole.intersect(scene, rays), KERNEL_REPS)
+        ref_o_ms, _, ref_blocked = timed(lambda: whole.occluded(scene, rays), KERNEL_REPS)
+        both = hit.valid & ref_hit.valid
+        t_off = both & ~torch.isclose(hit.t, ref_hit.t, rtol=1e-5, atol=0.0)
+        bad_c = (hit.valid != ref_hit.valid) | t_off
+        bad_o = blocked != ref_blocked
+        allowed = walk_allowed(live)
+        log(f"[{label}:{wf}] closest hit: {int(hit.valid.sum())} hits (unsharded "
+            f"{int(ref_hit.valid.sum())}); differing rays {int(bad_c.sum())} of "
+            f"{int(live.sum())} live (flag {int((hit.valid != ref_hit.valid).sum())}, t "
+            f"{int(t_off.sum())}; allowed {allowed}); shards "
+            + ", ".join(f"{t:.3f}" for t in times["closest"])
+            + f" ms, sum {sum(times['closest']):.3f} ms; unsharded {ref_c_ms:.3f} ms")
+        log(f"[{label}:{wf}] occlusion: {int(blocked.sum())} blocked (unsharded "
+            f"{int(ref_blocked.sum())}); differing rays {int(bad_o.sum())} (allowed "
+            f"{allowed}); shards " + ", ".join(f"{t:.3f}" for t in times["occluded"])
+            + f" ms, sum {sum(times['occluded']):.3f} ms; unsharded {ref_o_ms:.3f} ms; "
+            f"card {card_line()}")
+        if int(bad_c.sum()) > allowed or int(bad_o.sum()) > allowed:
+            raise AssertionError(f"{label}:{wf}: the 4-shard ring departs from the "
+                                 "unsharded queries")
+    for wf, rays in wfs.items():
+        order = _coherence_order(rays, acc.bounds)
+
+        def steps():
+            ring_closest(rays, order)
+            ring_occluded(rays, order)
+
+        cull_frame_phase(steps, f"{label}:{wf}")
+        walk_frame_phase(steps, f"{label}:{wf}", ids=("K2", "K3"))
+    return counts
+
+
+def mesh_multi_rank(rank, results_dir):
+    """One NCCL rank of ``[mesh_multi]``: ``sphere_field`` at 512x512,
+    depth 8 on its own card, a (1, n) mesh; the ring render and the
+    sharded render and step over it.  Rank 0 also renders and steps
+    without a mesh and saves both."""
+    import torch
+
+    from mcrt_tpu_torch.accel import build_intersector
+    from mcrt_tpu_torch.diff import estimators
+    from mcrt_tpu_torch.parallel.mesh import make_mesh
+    from mcrt_tpu_torch.parallel.render import make_train_step, render_spp_batch
+    from mcrt_tpu_torch.parallel.ring import build_sharded_scene
+    from mcrt_tpu_torch.scene.builders import sphere_field
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(device=device)
+    scene, camera = sphere_field(device=device)
+    cfg = main_cfg(spp=MESH_FRAMES)
+    isect = build_intersector(scene, cfg)
+    frames = list(range(MESH_FRAMES))
+    out = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out["sharded"] = render_spp_batch(scene, camera, frames, cfg, isect, mesh).cpu()
+        out["sharded_s"] = time.perf_counter() - t0
+        sscene, ring = build_sharded_scene(scene, mesh)
+        t0 = time.perf_counter()
+        out["ring"] = render_spp_batch(sscene, camera, frames, cfg, ring, mesh).cpu()
+        out["ring_s"] = time.perf_counter() - t0
+        if rank == 0:
+            out["unsharded"] = render_spp_batch(scene, camera, frames, cfg, isect).cpu()
+    gcfg = main_cfg(spp=1)
+    gisect = build_intersector(scene, gcfg)
+    view = estimators.full_params()
+    with torch.no_grad():
+        target = render_spp_batch(scene, camera, [1000], gcfg, gisect)
+    loss, grads = make_train_step(camera, gcfg, gisect, mesh, view.get, view.set)(
+        scene, [0], target)
+    out["step"] = (loss.item(), {k: g.cpu() for k, g in grads.items()})
+    if rank == 0:
+        loss, grads = make_train_step(camera, gcfg, gisect, None, view.get, view.set)(
+            scene, [0], target)
+        out["step0"] = (loss.item(), {k: g.cpu() for k, g in grads.items()})
+    torch.save(out, os.path.join(results_dir, f"rank{rank}.pt"))
+
+
+def mesh_multi_phase(device):
+    """``[mesh_multi]``: where the machine has two cards or more, min(4,
+    count) NCCL ranks, one a card (``spawn_ranks``), run the ring render and
+    the sharded render and step; each rank's results against rank 0's
+    single-device ones (renders at the parity share, the loss at rtol 1e-5,
+    gradients within ``grad_check.GRAD_TOL``).  Otherwise one line says the
+    phase waits for such a machine.  Any rank's failure fails the run."""
+    import tempfile
+
+    import torch
+
+    from mcrt_tpu_torch.parallel.mesh import spawn_ranks
+    from mcrt_tpu_torch.tools import grad_check
+
+    label = "mesh_multi"
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[{label}] waits for a machine with two cards or more: this one has {count} "
+            "(NCCL takes one rank a card)")
+        return
+    n = min(4, count)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(mesh_multi_rank, n, args=(tmp,), device="cuda",
+                    init_method=f"file://{tmp}/store", timeout=600)
+        wall = time.perf_counter() - t0
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+               for r in range(n)]
+    ref, (loss0, g0) = res[0]["unsharded"], res[0]["step0"]
+    for r, out in enumerate(res):
+        for what in ("sharded", "ring"):
+            agreement(label, f"rank {r} {what} render against the single-card render",
+                      out[what], ref)
+        loss, g = out["step"]
+        if abs(loss - loss0) > 1e-5 * abs(loss0):
+            raise AssertionError(f"{label}: rank {r}'s sharded loss {loss} departs from {loss0}")
+        for k, ref_g in g0.items():
+            rtol, atol = grad_check.GRAD_TOL[k]
+            if not bool(((g[k] - ref_g).abs() <= rtol * ref_g.abs()
+                         + atol * ref_g.abs().max()).all()):
+                raise AssertionError(f"{label}: rank {r}'s {k} gradient departs")
+    log(f"[{label}] {n} ranks: sharded render {res[0]['sharded_s']:.2f} s, ring "
+        f"render {res[0]['ring_s']:.2f} s ({MESH_FRAMES} samples, {WIDTH}x{HEIGHT}, depth 8, "
+        f"first call), every rank against rank 0's single-card render and step; "
+        f"{wall:.1f} s in all")
+
+
+def mesh_phases(scene, camera, device):
+    """Phase 8: a one-rank NCCL group started by the port's own helper and
+    ``make_mesh()``; ``[mesh_render]`` and ``[ring1]`` under
+    ``torch.no_grad()``, ``[mesh_grad]`` outside it; ``[ring4]`` in one
+    process; ``[mesh_multi]`` where the machine has the cards.  Returns
+    each phase's launch counts."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from mcrt_tpu_torch.parallel.mesh import init_process_group, make_mesh
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group(device, f"file://{tmp}/store", rank=0, world_size=1)
+        try:
+            mesh = make_mesh(device=device)
+            log(f"[mesh] one-rank {dist.get_backend()} group, mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
+            with torch.no_grad():
+                counts["mesh_render"], ref = mesh_render_phase(scene, camera, mesh, device)
+                counts["ring1"] = ring1_phase(scene, camera, mesh, device, ref)
+            counts["mesh_grad"] = mesh_grad_phase(scene, camera, mesh, device)
+        finally:
+            dist.destroy_process_group()
+    with torch.no_grad():
+        counts["ring4"] = ring4_phase(scene, camera, device)
+    mesh_multi_phase(device)
+    return counts
+
+
+def cli_phase(device):
+    """Phase 9, ``[cli]``: ``python -m mcrt_tpu_torch info`` and ``render``
+    as subprocesses (``textured_hall``, 512x512, ``CLI_SPP`` spp, depth 8;
+    then again with ``--progressive CLI_PROGRESSIVE``), and the same
+    ``render`` through ``cli.main`` in this process with the launch
+    counters around it; both PNGs, decoded by ``decode_png``, against
+    ``to_srgb_u8`` of a ``Renderer`` render of the same configuration
+    (0.99 of pixels within 1 level); then the tone map and the denoiser on
+    that render's resolved image on the card against the same formulas on
+    the CPU (rtol 1e-5 / atol 1e-6), each timed.  Returns the launch counts
+    of the in-process CLI render."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from mcrt_tpu_torch import Renderer, cli
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.config import DenoiseConfig, IntegratorConfig, RenderConfig, \
+        ToneMapConfig
+    from mcrt_tpu_torch.film.denoise import bilateral
+    from mcrt_tpu_torch.film.tonemap import reinhard
+    from mcrt_tpu_torch.scene.builders import textured_hall
+    from mcrt_tpu_torch.scene.textures import decode_png
+    from mcrt_tpu_torch.tools.card import card_line
+    from mcrt_tpu_torch.utils.image import to_srgb_u8
+
+    label = "cli"
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "mcrt_tpu_torch", *argv], cwd=HERE,
+                           capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{label}: {' '.join(argv[:1])} exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+        return r.stdout, wall
+
+    out, wall = run("info")
+    name = torch.cuda.get_device_name(0)
+    log(f"[{label}] info ({wall:.1f} s): " + " | ".join(out.strip().splitlines()))
+    if name not in out or "memory" not in out:
+        raise AssertionError(f"{label}: info does not name the card {name!r} and its memory")
+    args = ["render", "--scene", "textured_hall", "--width", str(WIDTH), "--height",
+            str(HEIGHT), "--spp", str(CLI_SPP), "--max-depth", str(MAX_DEPTH)]
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "render.png")
+        out, wall = run(*args, "--out", png)
+        log(f"[{label}] render subprocess: {wall:.2f} s wall; it says: {out.strip()}")
+        with open(png, "rb") as f:
+            got = decode_png(f.read())[..., :3].astype(int)
+        out, wall_p = run(*args, "--out", os.path.join(tmp, "p.png"), "--progressive",
+                          str(CLI_PROGRESSIVE))
+        writes = [ln for ln in out.splitlines() if "spp (" in ln]
+        log(f"[{label}] --progressive {CLI_PROGRESSIVE}: {wall_p:.2f} s wall, "
+            f"{len(writes)} writes: " + "; ".join(ln.strip() for ln in writes))
+        if len(writes) != CLI_SPP // CLI_PROGRESSIVE:
+            raise AssertionError(f"{label}: --progressive wrote {len(writes)} times")
+        kernels.reset_launch_counts()  # the CLI's render, in this process
+        t0 = time.perf_counter()
+        rc = cli.main([*args, "--out", os.path.join(tmp, "in_process.png")])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        wall_i = time.perf_counter() - t0
+        with open(os.path.join(tmp, "in_process.png"), "rb") as f:
+            got_i = decode_png(f.read())[..., :3].astype(int)
+    log(f"[{label}] cli.main(render) in this process: exit {rc}, {wall_i:.2f} s wall; "
+        f"launches {counts}")
+    if rc != 0:
+        raise AssertionError(f"{label}: cli.main(render) returned {rc}")
+    check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=CLI_SPP,
+                       integrator=IntegratorConfig(max_depth=MAX_DEPTH))
+    r = Renderer(*textured_hall(device=device), cfg, device=device)
+    want = to_srgb_u8(r.render()).astype(int)
+    for what, png in (("subprocess", got), ("in-process", got_i)):
+        share = float((abs(png - want) <= 1).all(-1).mean())
+        log(f"[{label}] the {what} CLI's PNG against to_srgb_u8 of a Renderer render: "
+            f"{share:.4f} of pixels within 1 level")
+        if share < PARITY_MIN_SHARE:
+            raise AssertionError(f"{label}: the {what} CLI's PNG departs from the render")
+    raw = r.accum.image
+    for what, fn in (("tonemap", partial(reinhard, cfg=ToneMapConfig(enabled=True))),
+                     ("denoise", partial(bilateral, cfg=DenoiseConfig(enabled=True)))):
+        ms, _, on_card = timed(lambda: fn(raw), KERNEL_REPS)
+        on_cpu = fn(raw.cpu())
+        ok = torch.allclose(on_card.cpu(), on_cpu, rtol=1e-5, atol=1e-6)
+        err = (on_card.cpu() - on_cpu).abs().max().item()
+        log(f"[{label}] {what} {WIDTH}x{HEIGHT} on the card: {ms:.3f} ms (median of {KERNEL_REPS}); "
+            f"max |card - cpu| {err:.3e} (rtol 1e-5 / atol 1e-6: {ok}); card {card_line()}")
+        if not ok:
+            raise AssertionError(f"{label}: {what} on the card departs from the CPU's")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1603,6 +2110,8 @@ def main() -> int:
         phase_counts["bdpt_converged"] = bdpt_converged_phase(device)
         phase_counts.update({label: paths[label][0] for label in BDPT_PHASES})
     phase_counts.update(grad_phases(scene, camera, device))
+    phase_counts.update(mesh_phases(scene, camera, device))
+    phase_counts["cli"] = cli_phase(device)
     baked, inst = paths["main"][3], paths["instanced"][3]
     log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
         f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")

@@ -13,7 +13,9 @@
 
 On a CUDA device the queries launch the kernels; on the CPU they run the
 kernels' plain PyTorch versions (the choice is made by the tensors'
-device).
+device).  ``parallel/ring.py: build_sharded_scene`` binds a third
+``Intersector``, the ray ring over face shards, whose ``accel`` is the
+rank's ``ShardedBlockedAccel``; each ring step runs the blocked queries.
 """
 from __future__ import annotations
 

@@ -84,9 +84,13 @@ class KernelLibrary:
         self.build_log = ""
 
     def get(self) -> ctypes.CDLL:
+        from ..runtime.native import build_lock
+
         with self._lock:
             if self._lib is None:
-                self._lib = self._load(self._build())
+                with build_lock("kernels"):  # ranks that start together build once
+                    path = self._build()
+                self._lib = self._load(path)
             return self._lib
 
     def _build(self) -> str:

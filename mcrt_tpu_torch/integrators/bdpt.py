@@ -605,7 +605,7 @@ def strategy_pairs(max_depth: int):
 def trace(scene: Scene, camera: PinholeCamera, rays: Rays, stream: rng.SampleStream,
           cfg: IntegratorConfig, intersect, occluded, s1_only: bool = False,
           film: tuple[int, int] | None = None,
-          slot_of_pixel: torch.Tensor | None = None) -> torch.Tensor:
+          slot_of_pixel: torch.Tensor | None = None, share=None) -> torch.Tensor:
     """The full BDPT estimate of one wavefront: (N, 3) radiance, the t=1
     film splats included.
 
@@ -613,7 +613,13 @@ def trace(scene: Scene, camera: PinholeCamera, rays: Rays, stream: rng.SampleStr
     path tracer's NEE estimate.  ``film`` is the (W, H) resolution the t=1
     splats address (a square film of sqrt(n) by default); ``slot_of_pixel``
     maps a row-major pixel to the ray slot carrying it, for callers that
-    trace the pixels in another order (the renderer's Morton order)."""
+    trace the pixels in another order (the renderer's Morton order).
+
+    ``share`` (a ``renderer.SlotSlice``) says the rays are slots lo..hi of
+    a wavefront of ``len(slot_of_pixel)`` slots (a rays-sharded render).
+    Their t=1 splats then go to a film of every slot, which
+    ``share.reduce_film`` completes with the other ranks' before the lanes
+    lo..hi are added to the slice's radiance."""
     n = rays.n
     cam, stream, cam_bsdfs = generate_camera_subpath(scene, camera, rays, stream,
                                                      cfg.max_depth + 2, cfg, intersect)
@@ -650,6 +656,10 @@ def trace(scene: Scene, camera: PinholeCamera, rays: Rays, stream: rng.SampleStr
             masked = torch.where(vis[..., None], contrib, 0.0)
             if flat is None:
                 L = L + torch.sum(masked, dim=0)
-            else:
+            elif share is None:
                 L = _splat(L, flat, masked)
+            else:
+                splats = share.reduce_film(
+                    _splat(L.new_zeros((slot_of_pixel.shape[0], 3)), flat, masked))
+                L = L + splats[share.lo:share.hi]
     return L

@@ -8,7 +8,8 @@ differentiable with respect to the scene's tensors (inverse rendering,
 ``diff/``); BDPT is refused when a scene tensor requires grad.
 ``render_frame_fn`` folds ``samples_per_pass`` such samples into the
 accumulator, and ``Renderer`` owns the scene, the intersector and the
-accumulator on one device.  PyTorch runs eagerly, so where the JAX package
+accumulator on one device; its ``display_image`` applies the optional
+denoise and tone map.  PyTorch runs eagerly, so where the JAX package
 jits one program per frame this is a Python loop over the bounces.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time as _time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -25,6 +27,8 @@ from .camera.pinhole import PinholeCamera, pixel_uv
 from .config import IntegratorType, RenderConfig
 from .core.types import Rays, TensorRecord, default_device
 from .film.accumulate import Accumulator, accumulate
+from .film.denoise import bilateral
+from .film.tonemap import reinhard
 from .integrators import bdpt as bdpt_integrator
 from .integrators import path as path_integrator
 from .sampling import rng
@@ -89,6 +93,12 @@ def _pixel_order_tensors(w: int, h: int, device: torch.device):
             torch.from_numpy(inv).long().to(device))
 
 
+def slot_pixels(w: int, h: int, device, lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """(hi - lo,) long: the row-major pixel that each of the trace slots
+    lo..hi carries (all of them by default)."""
+    return _pixel_order_tensors(w, h, device)[0][lo:hi].long()
+
+
 def requires_grad(record) -> bool:
     """Whether any tensor of a (nested) tensor record requires grad."""
     if isinstance(record, torch.Tensor):
@@ -99,10 +109,28 @@ def requires_grad(record) -> bool:
     return False
 
 
+class SlotSlice(NamedTuple):
+    """One rank's share of a rays-sharded render: trace slots lo..hi of
+    the Morton-ordered wavefront, and ``reduce_film``, which sums an
+    (H*W, 3) film over the ranks that trace the other slots (BDPT's t=1
+    splats of a slice land on every rank's pixels)."""
+
+    lo: int
+    hi: int
+    reduce_film: Callable[[torch.Tensor], torch.Tensor]
+
+
 def render_sample(scene: Scene, camera: PinholeCamera, frame: int,
-                  cfg: RenderConfig, intersector: Intersector):
+                  cfg: RenderConfig, intersector: Intersector,
+                  share: SlotSlice | None = None):
     """One sample-per-pixel wavefront: ((H*W, 3) radiance in row-major pixel
-    order, (2,) jitter used).  Differentiable under the path tracer."""
+    order, (2,) jitter used).  Differentiable under the path tracer.
+
+    With ``share`` only its trace slots are traced, and the radiance is
+    theirs, in slot order (``slot_pixels`` gives their pixels).  Sample
+    streams are keyed by the pixel (Sobol) and
+    by the full wavefront's row (RANDOM), so each traced pixel gets the
+    radiance it gets in the full render."""
     if (cfg.integrator.type == IntegratorType.BDPT and torch.is_grad_enabled()
             and requires_grad(scene)):
         raise NotImplementedError(
@@ -112,13 +140,15 @@ def render_sample(scene: Scene, camera: PinholeCamera, frame: int,
     w, h = cfg.width, cfg.height
     device = camera.position.device
     jitter = frame_jitter(frame, device)
-    order, inv_order = _pixel_order_tensors(w, h, device)
-    uv = pixel_uv(w, h, jitter=jitter[None, :], device=device)[order.long()]
+    _, inv_order = _pixel_order_tensors(w, h, device)
+    lo, hi = (0, w * h) if share is None else (share.lo, share.hi)
+    traced = slot_pixels(w, h, device, lo, hi)
+    uv = pixel_uv(w, h, jitter=jitter[None, :], device=device)[traced]
     o, d = camera.generate_rays(uv)
     diff = camera.generate_ray_differentials(uv, w, h)
     rays = Rays.make(o, d)
     # per-pixel sample streams stay keyed by the pixel, not the trace slot
-    stream = rng.make_stream(cfg.sampler, frame, order)
+    stream = rng.make_stream(cfg.sampler, frame, traced, row0=lo)
     if cfg.integrator.type == IntegratorType.PATH:
         radiance = path_integrator.trace(scene, rays, stream, cfg.integrator,
                                          intersector.intersect, intersector.occluded,
@@ -126,7 +156,9 @@ def render_sample(scene: Scene, camera: PinholeCamera, frame: int,
     else:
         radiance = bdpt_integrator.trace(scene, camera, rays, stream, cfg.integrator,
                                          intersector.intersect, intersector.occluded,
-                                         film=(w, h), slot_of_pixel=inv_order)
+                                         film=(w, h), slot_of_pixel=inv_order, share=share)
+    if share is not None:
+        return radiance, jitter
     return radiance[inv_order], jitter
 
 
@@ -149,10 +181,6 @@ class Renderer:
 
     def __init__(self, scene: Scene, camera: PinholeCamera, cfg: RenderConfig,
                  device=None):
-        if cfg.denoise.enabled or cfg.tonemap.enabled:
-            raise NotImplementedError(
-                "denoise and tonemap are not ported yet (ROADMAP, Queue 1: "
-                "tonemap and denoise)")
         self.device = default_device(device)
         self.scene = scene.to(self.device)
         self.camera = camera.to(self.device)
@@ -227,5 +255,11 @@ class Renderer:
 
     def display_image(self) -> torch.Tensor:
         """The resolved (H, W, 3) image (rows bottom-up, as in the JAX
-        package)."""
-        return self.accum.image
+        package), then the bilateral denoise and the Reinhard tone map
+        where the config enables them."""
+        img = self.accum.image
+        if self.cfg.denoise.enabled:
+            img = bilateral(img, self.cfg.denoise)
+        if self.cfg.tonemap.enabled:
+            img = reinhard(img, self.cfg.tonemap)
+        return img

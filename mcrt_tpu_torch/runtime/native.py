@@ -12,7 +12,9 @@ the Python line parser.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -23,6 +25,21 @@ import numpy as np
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libmcrt_native.so")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+
+
+@contextlib.contextmanager
+def build_lock(name: str):
+    """An exclusive file lock (``mcrt_tpu_torch/_build/<name>.lock``) that
+    serializes builds across processes: ranks that start together would
+    otherwise race on the same outputs."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, f"{name}.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 class _NativeLib:
@@ -41,8 +58,9 @@ class _NativeLib:
             if self._lib is not None or self._tried:
                 return self._lib
             self._tried = True
-            if not os.path.exists(_LIB_PATH) and not _build():
-                return None
+            with build_lock("native"):
+                if not os.path.exists(_LIB_PATH) and not _build():
+                    return None
             try:
                 lib = ctypes.CDLL(_LIB_PATH)
             except OSError:
@@ -85,6 +103,11 @@ def _build() -> bool:
 
 
 _NATIVE = _NativeLib()
+
+
+def available() -> bool:
+    """Whether the native library built and loaded."""
+    return _NATIVE.get() is not None
 
 
 def sah_block_order(positions: np.ndarray, indices: np.ndarray,

@@ -1,0 +1,88 @@
+"""Device discovery and memory accounting (counterpart of
+``mcrt_tpu/runtime/platform.py``): ``enumerate_devices`` and
+``device_memory_stats`` read ``torch.cuda``; ``BufferManager`` keeps named
+byte totals of tensors (tensor records, dicts, lists) with the largest
+total seen."""
+from __future__ import annotations
+
+import dataclasses
+import platform as _platform
+from dataclasses import dataclass, field
+
+import torch
+
+
+@dataclass(frozen=True)
+class DeviceInfo:
+    index: int
+    platform: str
+    kind: str
+    memory_bytes: int | None  # device memory, where known
+
+
+def enumerate_devices() -> list[DeviceInfo]:
+    """The CUDA cards, or the CPU alone where there is none."""
+    if not torch.cuda.is_available():
+        return [DeviceInfo(index=0, platform="cpu", kind=_platform.processor() or "cpu",
+                           memory_bytes=None)]
+    out = []
+    for i in range(torch.cuda.device_count()):
+        props = torch.cuda.get_device_properties(i)
+        out.append(DeviceInfo(index=i, platform="gpu", kind=props.name,
+                              memory_bytes=int(props.total_memory)))
+    return out
+
+
+def device_memory_stats(index: int = 0) -> dict:
+    """The card's allocator statistics (``bytes_in_use``, ``peak_bytes_in_use``,
+    ``bytes_reserved``, ``bytes_limit``); empty without a card."""
+    if not torch.cuda.is_available() or index >= torch.cuda.device_count():
+        return {}
+    return {"bytes_in_use": int(torch.cuda.memory_allocated(index)),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(index)),
+            "bytes_reserved": int(torch.cuda.memory_reserved(index)),
+            "bytes_limit": int(torch.cuda.get_device_properties(index).total_memory)}
+
+
+def nbytes(tree) -> int:
+    """Bytes of every tensor in a tensor, tensor record, dict, list or
+    tuple (nested)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return sum(nbytes(getattr(tree, f.name)) for f in dataclasses.fields(tree))
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(nbytes(v) for v in tree)
+    return 0
+
+
+@dataclass
+class BufferManager:
+    """Named allocation contexts with their byte totals and the largest
+    total seen."""
+
+    contexts: dict[str, int] = field(default_factory=dict)
+    max_total: int = 0
+
+    def register(self, name: str, tree) -> int:
+        """Track the tensors of ``tree`` under ``name``; returns their bytes."""
+        size = nbytes(tree)
+        self.contexts[name] = self.contexts.get(name, 0) + size
+        self.max_total = max(self.max_total, self.total)
+        return size
+
+    def release(self, name: str) -> None:
+        self.contexts.pop(name, None)
+
+    @property
+    def total(self) -> int:
+        return sum(self.contexts.values())
+
+    def report(self) -> str:
+        lines = [f"  {name:<24} {size / 2**20:8.2f} MiB"
+                 for name, size in sorted(self.contexts.items())]
+        lines.append(f"  {'TOTAL':<24} {self.total / 2**20:8.2f} MiB"
+                     f" (max {self.max_total / 2**20:.2f})")
+        return "\n".join(lines)

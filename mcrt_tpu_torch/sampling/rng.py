@@ -14,6 +14,7 @@ draw advances the dimension, so one interface backs both samplers:
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -25,7 +26,11 @@ from .sobol import M32, sobol_matrices, sobol_sample_scrambled
 @dataclass(frozen=True)
 class SampleStream:
     """Functional per-wavefront sample stream.  ``pixel`` are global pixel
-    ids (for the Sobol scramble), ``index`` is the sample index (frame)."""
+    ids (for the Sobol scramble), ``index`` is the sample index (frame).
+    ``row0`` is the wavefront row of the first lane: a rays-sharded render
+    traces rows ``row0 ..`` of the full wavefront, and RANDOM's counters
+    run over the full wavefront's rows, as the JAX package's global
+    arrays do under a mesh."""
 
     seed: int
     index: int
@@ -34,14 +39,14 @@ class SampleStream:
     scramble: int  # frame-independent Sobol scramble seed
     kind: int  # 0 = random, 1 = sobol
     sobol_mats: torch.Tensor | None = None
+    row0: int = 0
 
     def advance(self, k: int) -> "SampleStream":
-        return SampleStream(self.seed, self.index, self.dim + k, self.pixel,
-                            self.scramble, self.kind, self.sobol_mats)
+        return dataclasses.replace(self, dim=self.dim + k)
 
 
 def make_stream(cfg: SamplerConfig, frame: int, pixel_ids: torch.Tensor,
-                sobol_mats: torch.Tensor | None = None) -> SampleStream:
+                sobol_mats: torch.Tensor | None = None, row0: int = 0) -> SampleStream:
     kind = 1 if cfg.type == SamplerType.SOBOL else 0
     if kind == 1 and sobol_mats is None:
         sobol_mats = sobol_matrices(pixel_ids.device)
@@ -50,7 +55,7 @@ def make_stream(cfg: SamplerConfig, frame: int, pixel_ids: torch.Tensor,
         pixel=pixel_ids.to(torch.int32),
         # frame-independent: each pixel walks ONE scrambled sequence
         scramble=(int(cfg.seed) * 2654435761) % (1 << 32),
-        kind=kind, sobol_mats=sobol_mats,
+        kind=kind, sobol_mats=sobol_mats, row0=int(row0),
     )
 
 
@@ -90,7 +95,8 @@ def _random_bits(stream: SampleStream, n_dims: int) -> torch.Tensor:
     mantissa of a float in [1, 2), minus 1."""
     key = random_key(stream.seed, stream.index, stream.dim)
     n = stream.pixel.shape[0]
-    i = torch.arange(n * n_dims, dtype=torch.int64, device=stream.pixel.device)
+    i = torch.arange(stream.row0 * n_dims, (stream.row0 + n) * n_dims, dtype=torch.int64,
+                     device=stream.pixel.device)
     y0, y1 = _threefry2x32(key, i >> 32, i & M32)
     mant = ((y0 ^ y1) >> 9) | 0x3F800000
     return (mant.to(torch.int32).view(torch.float32) - 1.0).reshape(n, n_dims)

@@ -336,7 +336,7 @@ def test_make_train_step_equals_loss_fn_and_autograd():
         assert torch.equal(grads[k], torch.zeros_like(v) if g is None else g), k
         assert grads[k].shape == v.shape
     assert float(grads["diffuse"].abs().sum()) > 0
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh is a DeviceMesh
         make_train_step(camera, cfg, isect, object(), view.get, view.set)
 
 

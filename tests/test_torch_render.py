@@ -216,16 +216,34 @@ def test_progressive_controls():
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(tonemap=ToneMapConfig(enabled=True)), "tonemap"),
     (dict(accel=AccelType.BRUTE), "not ported"),
     (dict(accel=AccelType.LBVH), "not ported"),
-    (dict(denoise=DenoiseConfig(enabled=True)), "denoise"),
 ])
 def test_unported_options_raise(change, match):
     scene, cam = tbuild.cornell_box(device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         Renderer(scene, cam, RenderConfig(width=8, height=8, **change),
                  device="cpu").render(1)
+
+
+@pytest.mark.parametrize("option", ["tonemap", "denoise"])
+def test_display_image_applies_tonemap_and_denoise(option):
+    """``display_image`` runs the enabled pass over the accumulated image
+    (``tests/test_torch_cli.py`` holds both passes against the JAX
+    package's); the accumulation itself is the plain render's."""
+    from mcrt_tpu_torch.film import denoise, tonemap
+
+    scene, cam = tbuild.cornell_box(device="cpu")
+    plain = Renderer(scene, cam, RenderConfig(width=8, height=8), device="cpu")
+    change = {"tonemap": ToneMapConfig(enabled=True),
+              "denoise": DenoiseConfig(enabled=True, radius=1)}[option]
+    cfg = RenderConfig(width=8, height=8, **{option: change})
+    r = Renderer(scene, cam, cfg, device="cpu")
+    img = r.render(2)
+    assert torch.equal(r.accum.image, plain.render(2))
+    want = (tonemap.reinhard(r.accum.image, change) if option == "tonemap"
+            else denoise.bilateral(r.accum.image, change))
+    assert torch.equal(img, want) and not torch.equal(img, r.accum.image)
 
 
 def test_bdpt_renderer_and_spp_batch():
@@ -250,16 +268,29 @@ def test_bdpt_renderer_and_spp_batch():
     assert torch.equal(batch, each)
 
 
-def test_render_spp_batch_refuses_a_mesh():
-    """Sharding over a device mesh is not ported: ``render_spp_batch`` with
-    a mesh raises, naming the roadmap's multi-GPU item."""
+def test_render_spp_batch_refuses_a_mesh(tmp_path):
+    """In a one-rank gloo group, ``render_spp_batch`` over a (1, 1)
+    ``DeviceMesh`` equals the unsharded call, and a mesh that is not a
+    ``DeviceMesh`` raises ``TypeError``."""
+    import torch.distributed as dist
+
     from mcrt_tpu_torch.accel import build_intersector
+    from mcrt_tpu_torch.parallel.mesh import init_process_group, make_mesh
     from mcrt_tpu_torch.parallel.render import render_spp_batch
 
     scene, cam = tbuild.cornell_box(device="cpu")
     cfg = RenderConfig(width=8, height=8)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        render_spp_batch(scene, cam, [0, 1], cfg, build_intersector(scene, cfg), mesh=object())
+    isect = build_intersector(scene, cfg)
+    init_process_group("cpu", f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        with torch.no_grad():
+            sharded = render_spp_batch(scene, cam, [0, 1], cfg, isect,
+                                       mesh=make_mesh(device="cpu"))
+            assert torch.equal(sharded, render_spp_batch(scene, cam, [0, 1], cfg, isect))
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            render_spp_batch(scene, cam, [0, 1], cfg, isect, mesh=object())
+    finally:
+        dist.destroy_process_group()
 
 
 def test_sbvh_render_agrees_with_sah_render():
