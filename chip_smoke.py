@@ -198,7 +198,42 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``--progressive CLI_PROGRESSIVE`` (it must write twice); then the tone
    map and the bilateral denoiser at 512x512 on the card, each timed,
    against the same formulas on the CPU from the same resolved image
-   (rtol 1e-5 / atol 1e-6).
+   (rtol 1e-5 / atol 1e-6).  Then ``view`` as a subprocess (``cornell_box``
+   512x512, depth 8, port 0): its address read from its first line, its
+   status polled until ``VIEW_SPP`` samples, ``/image.png`` fetched and
+   decoded once, then SIGINT: it must exit 0.
+10. BDPT gradients, outside ``torch.no_grad()``, each phase with the
+   launch counters set to 0 just before and read just after, as phase 7's
+   (``grad_phase`` under BDPT: the forward loss without a graph and the
+   step timed ``GRAD_STEPS`` times each, their ratio, the peak memory, the
+   gradients finite and not all zero, the step's loss the forward's):
+   ``[bdpt_grad]`` (``sphere_field`` 512x512, depth 8, 1 spp,
+   ``full_params``; K1-K3), ``[bdpt_grad_128]`` (128x128, depth 3, 2 spp,
+   ``material_params``), ``[bdpt_grad_dense]`` (``cornell_box``; K4/K5),
+   ``[bdpt_grad_instanced]`` (``sphere_field_instanced``, depth 3; K1, K6,
+   K7); each 512x512 phase then runs one step more per kernel group and
+   holds every launch against the plain versions, as phase 6 holds a
+   frame's (a full occlusion chunk of 2^21 rays among them).
+   ``[bdpt_grad_parity]``: card BDPT gradients against CPU BDPT gradients
+   (``tools/grad_check.py``) on ``cornell_box`` (material and light
+   parameters, 16x16, 16 spp) and ``glass_gallery`` (materials, 12x12, 4
+   spp), depth 2, within ``GRAD_TOL``.  Phase 8's ``[mesh_grad]`` also runs
+   under BDPT (``[mesh_grad_bdpt]``).
+11. The product surface, each phase with the launch counters around it.
+   ``[viewer]``: ``ProgressiveViewer`` on ``cornell_box`` 512x512, depth 8
+   (K4/K5), port 0: frames of ``serve`` (ms/spp), the page, the PNG, the
+   status and the stats (the card's memory); an edit of each kind through
+   HTTP (orbit, material, light, transform, the switch to
+   ``glass_gallery``, K1-K3), each resetting the spp and changing the
+   image, the material and light edits keeping the intersector, the
+   transform refitting it; a pick at the centre against the CPU's, and one
+   over HTTP answered by the render loop; one frame of each path holding
+   every launch against the plain versions.  ``[checkpoint]``:
+   ``textured_hall`` 512x512 rendered, saved, loaded into a fresh
+   ``Renderer`` and rendered on, equal bit for bit to the uninterrupted
+   render; a ``full_params`` tree saved and restored.  ``[profiler]``:
+   ``utils/profiling.py`` spans around 2 synced frames under
+   ``device_trace``: the report printed, the trace file holding the spans.
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
@@ -226,7 +261,7 @@ The second-to-last stdout line is the per-kernel JSON record (``ms``,
 of seven of a main path's eight bounces, K8's float32 chain's and K9's at
 k = 128; ``launches`` are the counts of the main path that runs the
 kernel, ``vpu_bench.main()`` for K8/K9, and ``launches_by_path`` every
-phase's count of phases 4 to 9; each row's ``variants`` map holds
+phase's count of phases 4 to 11; each row's ``variants`` map holds
 every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by`` and ``library_ms``, and for K8 (float32, bfloat16) and K9
 (k=8, k=128) also ``issue_floor_ms`` and ``sm_mhz``), the last one
@@ -1341,10 +1376,10 @@ def check_grads(label, grads, nonzero):
 
 
 def grad_phase(label, scene, camera, device, view_name, expect, forbid, nonzero, size=WIDTH,
-               spp=1, depth=MAX_DEPTH, frame_phases=()):
+               spp=1, depth=MAX_DEPTH, frame_phases=(), integrator="PATH"):
     """A gradient step (``make_train_step``, the mean squared error against
     a render of other samples) on ``scene`` at ``size``^2, Sobol, ``depth``
-    bounces, ``spp`` samples, with ``view_name``'s parameters: the forward
+    bounces, ``spp`` samples, under ``integrator``, with ``view_name``'s parameters: the forward
     loss under ``torch.no_grad()`` and the step (forward and backward) are
     timed ``GRAD_STEPS`` times each (median) with the launch counters set to
     0 just before and read just after; prints both, their ratio (the JAX
@@ -1359,7 +1394,7 @@ def grad_phase(label, scene, camera, device, view_name, expect, forbid, nonzero,
     from mcrt_tpu_torch.parallel.render import make_train_step, render_spp_batch
     from mcrt_tpu_torch.tools.card import card_line
 
-    cfg = main_cfg(spp=spp, size=size, depth=depth)
+    cfg = main_cfg(spp=spp, size=size, depth=depth, integrator=integrator)
     isect = build_intersector(scene, cfg)
     view = getattr(estimators, view_name)()
     frames = list(range(spp))
@@ -1387,7 +1422,8 @@ def grad_phase(label, scene, camera, device, view_name, expect, forbid, nonzero,
     if not (bool(torch.isfinite(loss)) and torch.isclose(loss, fwd_loss, rtol=1e-5)):
         raise AssertionError(f"{label}: the step's loss {loss.item()} is not finite or not "
                              f"the forward loss {fwd_loss.item()} (rtol 1e-5)")
-    log(f"[{label}] {size}x{size}, {depth} bounces, {spp} spp, {view_name}: forward "
+    log(f"[{label}] {size}x{size}, {depth} bounces, {spp} spp, {integrator.lower()}, "
+        f"{view_name}: forward "
         f"{fwd_ms:.2f} ms, forward+backward {step_ms:.2f} ms, ratio {step_ms / fwd_ms:.3f} "
         f"(median of {GRAD_STEPS}; forward " + ", ".join(f"{t:.1f}" for t in fwd_all)
         + "; step " + ", ".join(f"{t:.1f}" for t in step_all) + f"), loss {loss.item():.6e}, "
@@ -1576,6 +1612,75 @@ def bdpt_phases(scene, camera, device):
     }
 
 
+BDPT_GRAD_PHASES = ("bdpt_grad", "bdpt_grad_128", "bdpt_grad_dense", "bdpt_grad_instanced",
+                    "bdpt_grad_parity")
+
+
+def bdpt_grad_parity_phase(device):
+    """Card BDPT gradients against CPU BDPT gradients
+    (``tools/grad_check.py``) over the (sample, pixel) pairs whose forward
+    radiance agrees (at least 99%), each field within ``GRAD_TOL``:
+    ``cornell_box`` ``material_params`` and ``light_params`` (16x16, 16
+    spp, depth 2; K4/K5) and ``glass_gallery`` ``material_params`` (12x12,
+    4 spp, depth 2; K1-K3)."""
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.scene.builders import cornell_box, glass_gallery
+    from mcrt_tpu_torch.tools import grad_check
+
+    label = "bdpt_grad_parity"
+    kernels.reset_launch_counts()
+    for builder, view, size, spp in ((cornell_box, "material_params", 16, 16),
+                                     (cornell_box, "light_params", 16, 16),
+                                     (glass_gallery, "material_params", 12, 4)):
+        share, grads = grad_check.device_parity(builder, view, size, spp, 2, device,
+                                                integrator="BDPT")
+        cmp = grad_check.compare(grads)
+        log(f"[{label}] {builder.__name__} {view}: samples agreeing {share:.4f}; " + ", ".join(
+            f"{k} max |card - cpu| {e:.3e} of max |g| {sc:.4e} ({'within' if ok else 'OUTSIDE'}"
+            f" rtol {grad_check.GRAD_TOL[k][0]:g} + {grad_check.GRAD_TOL[k][1]:g} max)"
+            for k, (e, sc, ok) in cmp.items()))
+        if share < grad_check.MIN_AGREE or not all(ok for _, _, ok in cmp.values()):
+            raise AssertionError(f"{label}: {builder.__name__} {view}: card BDPT gradients "
+                                 "depart from the CPU's")
+    counts = kernels.launch_counts()
+    check_launches(label, counts, ("K1", "K2", "K3", "K4", "K5"), ("K6", "K7"))
+    return counts
+
+
+def bdpt_grad_phases(scene, camera, device):
+    """Phase 10, BDPT gradients, outside ``torch.no_grad()``: ``grad_phase``
+    under BDPT on ``sphere_field`` at 512x512, depth 8 (K1-K3) and at
+    128x128, depth 3, 2 spp; ``cornell_box`` at 512x512, depth 8 (K4/K5);
+    ``sphere_field_instanced`` at 512x512, depth 3 (K1, K6, K7); each
+    512x512 phase holds every launch of its kernels on one more step
+    against the plain versions, a full occlusion chunk among them; then
+    ``[bdpt_grad_parity]``.  Returns each phase's launch counts."""
+    from mcrt_tpu_torch.scene.builders import cornell_box, sphere_field_instanced
+
+    k1_3, k4_5, k6_7 = ("K1", "K2", "K3"), ("K4", "K5"), ("K6", "K7")
+    cull = partial(cull_frame_phase, chunk=True)
+    every = ("diffuse", "roughness", "intensity")
+    return {
+        "bdpt_grad": grad_phase(
+            "bdpt_grad", scene, camera, device, "full_params", k1_3, k4_5 + k6_7, every,
+            integrator="BDPT",
+            frame_phases=(cull, partial(walk_frame_phase, ids=("K2", "K3"), chunk="K3")))[0],
+        "bdpt_grad_128": grad_phase(
+            "bdpt_grad_128", scene, camera, device, "material_params", k1_3, k4_5 + k6_7,
+            ("diffuse", "roughness"), size=128, spp=2, depth=3, integrator="BDPT")[0],
+        "bdpt_grad_dense": grad_phase(
+            "bdpt_grad_dense", *cornell_box(device=device), device, "full_params", k4_5,
+            k1_3 + k6_7, ("diffuse", "intensity"), integrator="BDPT",
+            frame_phases=(partial(dense_frame_phase, chunk=True),))[0],
+        "bdpt_grad_instanced": grad_phase(
+            "bdpt_grad_instanced", *sphere_field_instanced(device=device), device,
+            "full_params", ("K1",) + k6_7, ("K2", "K3") + k4_5, every, depth=3,
+            integrator="BDPT",
+            frame_phases=(cull, partial(walk_frame_phase, ids=k6_7, chunk="K7")))[0],
+        "bdpt_grad_parity": bdpt_grad_parity_phase(device),
+    }
+
+
 MESH_FRAMES = 4  # samples of [mesh_render] and [ring1]
 RING_SHARDS = 4  # shards of [ring4], run in ring order in one process
 CLI_SPP, CLI_PROGRESSIVE = 8, 4  # [cli]: samples, and the interval of its progressive run
@@ -1622,12 +1727,13 @@ def mesh_render_phase(scene, camera, mesh, device):
     return counts, ref
 
 
-def mesh_grad_phase(scene, camera, mesh, device):
+def mesh_grad_phase(scene, camera, mesh, device, integrator="PATH"):
     """``[mesh_grad]``: the sharded ``make_train_step`` over the one-rank
     mesh against the unsharded step at ``[grad]``'s configuration
     (``sphere_field`` 512x512, depth 8, 1 spp, ``full_params``): the loss
     within rtol 1e-6, every gradient within ``grad_check.GRAD_TOL``; both
-    steps timed in turns after one sharded warm-up step."""
+    steps timed in turns after one sharded warm-up step.  Under BDPT,
+    ``[mesh_grad_bdpt]``, at ``[bdpt_grad]``'s configuration."""
     import torch
 
     from mcrt_tpu_torch.accel import build_intersector, kernels
@@ -1636,8 +1742,8 @@ def mesh_grad_phase(scene, camera, mesh, device):
     from mcrt_tpu_torch.tools import grad_check
     from mcrt_tpu_torch.tools.card import card_line
 
-    label = "mesh_grad"
-    cfg = main_cfg(spp=1)
+    label = "mesh_grad" if integrator == "PATH" else "mesh_grad_bdpt"
+    cfg = main_cfg(spp=1, integrator=integrator)
     isect = build_intersector(scene, cfg)
     view = estimators.full_params()
     with torch.no_grad():
@@ -1665,7 +1771,8 @@ def mesh_grad_phase(scene, camera, mesh, device):
         if not ok:
             raise AssertionError(f"{label}: the sharded step's {k} gradient departs")
     loss_ok = bool(torch.isclose(loss, loss0, rtol=1e-6, atol=0.0))
-    log(f"[{label}] {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, 1 spp, full_params: sharded step "
+    log(f"[{label}] {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces, 1 spp, {integrator.lower()}, "
+        f"full_params: sharded step "
         f"{sh_ms:.2f} / {sh_ms2:.2f} ms, unsharded {ref_ms:.2f} / {ref_ms2:.2f} ms (in turns); "
         f"loss {loss.item():.6e} against {loss0.item():.6e} (rtol 1e-6: {loss_ok}); "
         + "; ".join(worst) + f"; launches {counts}; card {card_line()}")
@@ -1943,12 +2050,60 @@ def mesh_phases(scene, camera, device):
                 counts["mesh_render"], ref = mesh_render_phase(scene, camera, mesh, device)
                 counts["ring1"] = ring1_phase(scene, camera, mesh, device, ref)
             counts["mesh_grad"] = mesh_grad_phase(scene, camera, mesh, device)
+            counts["mesh_grad_bdpt"] = mesh_grad_phase(scene, camera, mesh, device, "BDPT")
         finally:
             dist.destroy_process_group()
     with torch.no_grad():
         counts["ring4"] = ring4_phase(scene, camera, device)
     mesh_multi_phase(device)
     return counts
+
+
+VIEW_SPP = 3  # [cli]'s view: samples the subprocess reaches before it is interrupted
+
+
+def view_phase(label):
+    """``python -m mcrt_tpu_torch view`` (``cornell_box``, 512x512, depth 8)
+    as a subprocess on port 0: the address read from its first line, its
+    ``/api/status`` polled until ``VIEW_SPP`` samples, ``/image.png`` fetched
+    once and decoded, then SIGINT: it must exit 0.  The subprocess is killed
+    if it outlives the phase."""
+    import re
+    import signal
+    import subprocess
+    import threading
+
+    from mcrt_tpu_torch.scene.textures import decode_png
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mcrt_tpu_torch", "view", "--scene", "cornell_box", "--port", "0",
+         "--width", str(WIDTH), "--height", str(HEIGHT), "--max-depth", str(MAX_DEPTH)],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    killer = threading.Timer(300, proc.kill)
+    killer.start()
+    try:
+        line = proc.stdout.readline()
+        found = re.search(r"serving http://127\.0\.0\.1:(\d+)/", line)
+        if not found:
+            raise AssertionError(f"{label}: view printed {line!r}")
+        port = int(found.group(1))
+        served_s = time.perf_counter() - t0
+        while json.loads(http_get(port, "/api/status")[1])["spp"] < VIEW_SPP:
+            time.sleep(0.1)
+        spp_s = time.perf_counter() - t0
+        img = decode_png(http_get(port, "/image.png")[1])
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[{label}] view subprocess: {line.strip()!r} after {served_s:.1f} s, {VIEW_SPP} spp "
+        f"after {spp_s:.1f} s; /image.png {img.shape}; exit {proc.returncode} after SIGINT")
+    if proc.returncode != 0 or img.shape[:2] != (HEIGHT, WIDTH):
+        raise AssertionError(f"{label}: view exited {proc.returncode}:\n{out[-2000:]}{err[-3000:]}")
 
 
 def cli_phase(device):
@@ -2033,6 +2188,7 @@ def cli_phase(device):
             f"{share:.4f} of pixels within 1 level")
         if share < PARITY_MIN_SHARE:
             raise AssertionError(f"{label}: the {what} CLI's PNG departs from the render")
+    view_phase(label)
     raw = r.accum.image
     for what, fn in (("tonemap", partial(reinhard, cfg=ToneMapConfig(enabled=True))),
                      ("denoise", partial(bilateral, cfg=DenoiseConfig(enabled=True)))):
@@ -2044,6 +2200,270 @@ def cli_phase(device):
             f"max |card - cpu| {err:.3e} (rtol 1e-5 / atol 1e-6: {ok}); card {card_line()}")
         if not ok:
             raise AssertionError(f"{label}: {what} on the card departs from the CPU's")
+    return counts
+
+
+VIEWER_FRAMES = 4  # [viewer]: frames before the edits
+EDIT_FRAMES = 2  # [viewer]: frames after each edit
+CHECKPOINT_FRAMES = 4  # [checkpoint]: frames before the save, and after the load
+
+
+def http_get(port, path, timeout=120):
+    """(status, body) of a GET on 127.0.0.1:``port``."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def png_image(data: bytes):
+    """(H, W, 3) float32 of PNG bytes, through ``utils/image.read_png``."""
+    import tempfile
+
+    from mcrt_tpu_torch.utils.image import read_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "view.png")
+        with open(path, "wb") as f:
+            f.write(data)
+        return read_png(path)
+
+
+def viewer_phase(device):
+    """Phase 11, ``[viewer]``: ``ProgressiveViewer`` on ``cornell_box`` at
+    512x512, depth 8, Sobol (K4/K5), on 127.0.0.1 port 0, driven as a user
+    drives it: ``VIEWER_FRAMES`` frames of ``serve`` with the launch
+    counters around them (ms/spp printed), then ``/``, ``/image.png``
+    (decoded by ``read_png``), ``/api/status`` and ``/api/stats`` (which
+    must show the card's memory); then one edit of each kind through its
+    HTTP endpoint (orbit, material, light, transform of a baked shape, the
+    switch to ``glass_gallery``), each followed by ``EDIT_FRAMES`` frames:
+    each must reset the spp and change the image; the material and light
+    edits keep the intersector (``rebuild_accel=False``), the transform
+    refits it.  A pick at the image centre, in this thread and over HTTP
+    (the render loop in a second thread answers), must hit the shape the
+    CPU's pick hits.  One more frame holds every K4/K5 launch against the
+    plain versions on ``cornell_box``, and every K1-K3 launch after the
+    switch.  Returns the launch counts of the first frames and of the
+    frames after the switch."""
+    import threading
+
+    import torch
+
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.scene.builders import cornell_box
+    from mcrt_tpu_torch.tools.card import card_line
+    from mcrt_tpu_torch.viewer import ProgressiveViewer
+
+    label = "viewer"
+    cfg = main_cfg()
+    scene, camera = cornell_box(device=device)
+    t0 = time.perf_counter()
+    v = ProgressiveViewer(Renderer(scene, camera, cfg, device=device), port=0,
+                          scene_name="cornell_box")
+    cpu = ProgressiveViewer(Renderer(*cornell_box(device="cpu"), cfg, device="cpu"), port=0)
+    try:
+        log(f"[{label}] serving on 127.0.0.1:{v.port}, set up in "
+            f"{time.perf_counter() - t0:.2f} s")
+        v.serve(max_steps=1)  # warm-up
+        v.renderer.reset()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        busy0 = v.stats()["render_time_s"]
+        t0 = time.perf_counter()
+        v.serve(max_steps=VIEWER_FRAMES)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
+        st = v.stats()
+        log(f"[{label}] {VIEWER_FRAMES} frames of serve: {wall * 1e3 / VIEWER_FRAMES:.2f} ms/spp "
+            f"(wall, publishing included), "
+            f"{(st['render_time_s'] - busy0) * 1e3 / VIEWER_FRAMES:.2f} ms/spp (the viewer's "
+            f"synced step times), {st['samples_per_sec']:.3f} spp/s (the last frame's); "
+            f"launches {counts}; card {card_line()}")
+        code, page = http_get(v.port, "/")
+        _, png = http_get(v.port, "/image.png")
+        img = png_image(png)
+        status = json.loads(http_get(v.port, "/api/status")[1])
+        stats = json.loads(http_get(v.port, "/api/stats")[1])
+        log(f"[{label}] / {code} ({len(page)} bytes); /image.png {len(png)} bytes, "
+            f"{img.shape}, mean {img.mean():.4f}; /api/status {status}; /api/stats {stats}")
+        if (code != 200 or b"viewer" not in page or img.shape != (HEIGHT, WIDTH, 3)
+                or not img.mean() > 0.0 or status["spp"] != VIEWER_FRAMES):
+            raise AssertionError(f"{label}: the endpoints do not serve the render")
+        if not 0 < stats["device_bytes_in_use"] < stats["device_bytes_limit"]:
+            raise AssertionError(f"{label}: /api/stats does not show the card's memory")
+        sel, ref = v.pick(0.5, 0.5), cpu.pick(0.5, 0.5)
+        log(f"[{label}] pick (0.5, 0.5) on the card: {sel}; on the CPU: {ref}")
+        if not sel["hit"] or (sel["shape"], sel["prim"]) != (ref["shape"], ref["prim"]):
+            raise AssertionError(f"{label}: the card's pick departs from the CPU's")
+        dense_frame_phase(lambda: v.serve(max_steps=1), label)
+
+        edits = (("orbit", "/api/camera?yaw=0.3&pitch=0.1", "kept"),
+                 ("material", "/api/material?id=1&r=0.2&g=0.7&b=0.3", "same"),
+                 ("light", "/api/light?id=0&ir=30&ig=20&ib=10", "same"),
+                 ("transform", "/api/transform?shape=5&x=0.2&y=0&z=0.1&ry=0.3", "refit"),
+                 ("scene", "/api/scene?name=glass_gallery", "new"))
+        switched = None
+        for what, path, accel in edits:
+            before = v.renderer.display_image().clone()
+            isect = v.renderer.intersector
+            code, _ = http_get(v.port, path)
+            if what == "scene":
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            v.serve(max_steps=EDIT_FRAMES)
+            wall = time.perf_counter() - t0
+            if what == "scene":
+                switched = kernels.launch_counts()
+            after = v.renderer.display_image()
+            changed = (after != before).any(-1).float().mean().item() if after.shape == \
+                before.shape else 1.0
+            same = v.renderer.intersector is isect
+            refit = (not same and v.renderer.intersector.accel.slot_prim is isect.accel.slot_prim)
+            spp = v.status()["spp"]
+            log(f"[{label}] {what} edit ({code}): {wall:.2f} s for {EDIT_FRAMES} frames with the "
+                f"edit; spp {spp}; pixels changed {changed:.4f}; intersector kept {same}, "
+                f"refitted {refit}")
+            if code != 200 or spp != EDIT_FRAMES or not changed > 0.0:
+                raise AssertionError(f"{label}: the {what} edit did not reset the spp or change "
+                                     "the image")
+            if (accel == "same" and not same) or (accel == "refit" and not refit):
+                raise AssertionError(f"{label}: the {what} edit did not keep ({accel}) the "
+                                     "intersector")
+        check_launches(f"{label}:glass_gallery", switched, ("K1", "K2", "K3"),
+                       ("K4", "K5", "K6", "K7"))
+        log(f"[{label}] glass_gallery after the switch: launches {switched}")
+        cull_frame_phase(lambda: v.serve(max_steps=1), f"{label}:glass_gallery")
+        walk_frame_phase(lambda: v.serve(max_steps=1), f"{label}:glass_gallery",
+                         ids=("K2", "K3"))
+        loop = threading.Thread(target=v.serve, daemon=True)
+        loop.start()
+        code, body = http_get(v.port, "/api/pick?u=0.5&v=0.5")
+        over_http = json.loads(body)
+        v.stop()
+        loop.join(timeout=120)
+        log(f"[{label}] pick over HTTP on glass_gallery (answered by the render loop): "
+            f"{over_http}")
+        if code != 200 or not over_http["hit"] or loop.is_alive():
+            raise AssertionError(f"{label}: the pick over HTTP failed or the loop did not stop")
+    finally:
+        v.stop()
+        cpu.stop()
+    return counts, switched
+
+
+def checkpoint_phase(device):
+    """Phase 11, ``[checkpoint]``: ``textured_hall`` at 512x512, depth 8,
+    Sobol (K4/K5) rendered ``CHECKPOINT_FRAMES`` frames on the card, saved
+    (``save_accumulator``), loaded into a fresh ``Renderer`` (onto the
+    card) and rendered ``CHECKPOINT_FRAMES`` more: the sums must equal
+    those of ``2 * CHECKPOINT_FRAMES`` uninterrupted frames bit for bit.
+    Then a ``save_pytree``/``restore_pytree`` round trip of
+    ``full_params``, equal.  Returns the launch counts of the resumed
+    frames."""
+    import tempfile
+
+    import torch
+
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.diff import estimators
+    from mcrt_tpu_torch.scene.builders import textured_hall
+    from mcrt_tpu_torch.utils import checkpoint
+
+    label = "checkpoint"
+    cfg = main_cfg()
+    scene, camera = textured_hall(device=device)
+    whole = Renderer(scene, camera, cfg, device=device)
+    whole.step(2 * CHECKPOINT_FRAMES)
+    first = Renderer(scene, camera, cfg, device=device)
+    first.step(CHECKPOINT_FRAMES)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "accum.npz")
+        save_ms, _, _ = timed(lambda: checkpoint.save_accumulator(
+            path, first.accum, extra={"frames": torch.tensor(CHECKPOINT_FRAMES)}), 1)
+        size = os.path.getsize(path)
+        resumed = Renderer(scene, camera, cfg, device=device)
+        load_ms, _, (resumed.accum, extra) = timed(lambda: checkpoint.load_accumulator(path), 1)
+        kernels.reset_launch_counts()
+        resumed.step(CHECKPOINT_FRAMES)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        params = estimators.full_params().get(scene)
+        tree = os.path.join(tmp, "params")
+        checkpoint.save_pytree(tree, params)
+        back = checkpoint.restore_pytree(tree, {k: torch.zeros_like(v) for k, v in params.items()})
+    check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
+    equal = (torch.equal(resumed.accum.weighted, whole.accum.weighted)
+             and torch.equal(resumed.accum.weight, whole.accum.weight)
+             and resumed.accum.frame == whole.accum.frame)
+    err = (resumed.accum.weighted - whole.accum.weighted).abs().max().item()
+    tree_ok = all(torch.equal(back[k], params[k]) and back[k].device == params[k].device
+                  for k in params)
+    log(f"[{label}] textured_hall {WIDTH}x{HEIGHT}, {MAX_DEPTH} bounces: save {save_ms:.1f} ms "
+        f"({size} bytes), load {load_ms:.1f} ms onto {resumed.accum.weighted.device}, extra "
+        f"{ {k: v.tolist() for k, v in extra.items()} }; {CHECKPOINT_FRAMES} + "
+        f"{CHECKPOINT_FRAMES} frames equal to {2 * CHECKPOINT_FRAMES} uninterrupted ones bit "
+        f"for bit: {equal} (max |diff| {err:.3e}); full_params round trip equal: {tree_ok}; "
+        f"launches {counts}")
+    if not equal or not tree_ok:
+        raise AssertionError(f"{label}: the resumed render or the tree departs")
+    return counts
+
+
+def profiler_phase(device):
+    """Phase 11, ``[profiler]``: ``utils/profiling.py`` spans (``frame``
+    synced on the accumulator, ``step`` inside it) around 2 frames of
+    ``cornell_box`` at 512x512, depth 8, under ``device_trace`` into a
+    temporary directory: the span report printed, the trace file must
+    exist and hold the spans; its kernel events are counted.  Returns the
+    launch counts of the traced frames."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.scene.builders import cornell_box
+    from mcrt_tpu_torch.utils import profiling
+
+    label = "profiler"
+    r = Renderer(*cornell_box(device=device), main_cfg(), device=device)
+    r.step(1)
+    prof = profiling.Profiler()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.device_trace(tmp):
+            for _ in range(2):
+                with prof.span("frame", sync=r.accum.weight):
+                    with prof.span("step"):
+                        r.step(1)
+        traced_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        files = glob.glob(os.path.join(tmp, "trace-*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"{label}: device_trace wrote {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    device_events = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    device_ms = sum(e.get("dur", 0) for e in device_events) / 1e3
+    log(f"[{label}] 2 traced frames in {traced_s:.2f} s; trace {os.path.basename(files[0])} "
+        f"{size} bytes, {len(events)} events, {len(device_events)} device events "
+        f"({device_ms:.1f} ms of device time); spans in the trace: "
+        f"{sorted(n for n in names if n in ('frame', 'step'))}; launches {counts}")
+    log(f"[{label}] span report:\n{prof.report()}")
+    stats = prof.stats()
+    if stats["frame"].count != 2 or stats["frame/step"].count != 2 or \
+            not {"frame", "step"} <= names:
+        raise AssertionError(f"{label}: the spans are not counted or not in the trace")
+    check_launches(label, counts, ("K4", "K5"), ("K1", "K2", "K3", "K6", "K7"))
     return counts
 
 
@@ -2112,6 +2532,10 @@ def main() -> int:
     phase_counts.update(grad_phases(scene, camera, device))
     phase_counts.update(mesh_phases(scene, camera, device))
     phase_counts["cli"] = cli_phase(device)
+    phase_counts.update(bdpt_grad_phases(scene, camera, device))
+    phase_counts["viewer"], phase_counts["viewer_glass_gallery"] = viewer_phase(device)
+    phase_counts["checkpoint"] = checkpoint_phase(device)
+    phase_counts["profiler"] = profiler_phase(device)
     baked, inst = paths["main"][3], paths["instanced"][3]
     log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
         f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")

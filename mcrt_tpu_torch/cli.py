@@ -2,17 +2,21 @@
 
     python -m mcrt_tpu_torch render --scene cornell_box --out out.png --spp 64
     python -m mcrt_tpu_torch render --config render.yaml --obj scene.obj
+    python -m mcrt_tpu_torch view --scene cornell_box --port 8000
     python -m mcrt_tpu_torch info
 
 Every command runs on the CUDA card unless ``--device`` names another
 (``--device cpu``).  ``--config`` reads a YAML ``RenderConfig`` and needs
-PyYAML.  ``view`` (the progressive viewer) and ``bench`` (the port's
-benchmark) are not ported yet and raise.
+PyYAML.  ``view`` serves the progressive viewer (``viewer.py``) until
+interrupted (SIGINT, Ctrl-C).  ``bench`` (the port's benchmark) is not
+written yet and raises.
 """
 from __future__ import annotations
 
 import argparse
+import signal
 import sys
+import threading
 import time
 
 SCENES = ("cornell_box", "glass_gallery", "textured_hall", "instanced_boxes", "sphere_field",
@@ -93,8 +97,33 @@ def cmd_render(args) -> int:
 
 
 def cmd_view(args) -> int:
-    raise NotImplementedError("the progressive viewer is not ported yet (ROADMAP, Queue 1: "
-                              "the product surface, the viewer)")
+    """Serve the accumulating render over HTTP with its edit loops until
+    interrupted; the viewer is stopped and its socket closed either way."""
+    from .core.types import default_device
+    from .renderer import Renderer
+    from .viewer import ProgressiveViewer
+
+    device = default_device(args.device)
+    cfg = _load_config(args)
+    scene, camera = _load_scene(args, device)
+    r = Renderer(scene, camera, cfg, device=device)
+    v = ProgressiveViewer(r, host=args.host, port=args.port,
+                          scene_name="custom" if args.obj else args.scene)
+    print(f"serving http://{args.host}:{v.port}/ ({cfg.width}x{cfg.height}, progressive, "
+          f"on {device})", flush=True)
+    # SIGINT stops the viewer even where it was started with SIGINT ignored
+    # (in the background of a non-interactive shell)
+    own = threading.current_thread() is threading.main_thread()
+    previous = signal.signal(signal.SIGINT, signal.default_int_handler) if own else None
+    try:
+        v.serve()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        v.stop()
+        if own:
+            signal.signal(signal.SIGINT, previous)
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -143,7 +172,7 @@ def main(argv=None) -> int:
     pr.add_argument("--out", default="render.png")
     pr.set_defaults(fn=cmd_render)
 
-    pv = sub.add_parser("view", help="progressive viewer (not ported yet)")
+    pv = sub.add_parser("view", help="progressive HTTP viewer with edits")
     _scene_args(pv)
     pv.add_argument("--host", default="127.0.0.1")
     pv.add_argument("--port", type=int, default=8000)

@@ -1,9 +1,10 @@
 """Differentiable-rendering estimators and parameter plumbing (counterpart
 of ``mcrt_tpu/diff/estimators.py``).
 
-The path tracer is differentiated end to end on torch autograd with
-respect to material, light, light-geometry and texel parameters.  The
-estimators are the JAX package's:
+Both integrators, the path tracer and BDPT, are differentiated end to end
+on torch autograd with respect to material, light, light-geometry and
+texel parameters; ``render_loss_fn``, ``InverseRenderer`` and
+``make_train_step`` take either.  The estimators are the JAX package's:
 
 - **BSDF sampling** is detached: the sampled direction and pdf carry no
   gradient, the BSDF value ``f`` does (``bsdf.uber.sample``);
@@ -17,8 +18,7 @@ Parameter setters clip with ``core.math.fclip``/``fmax``, whose gradient at
 a tie with the bound is the JAX package's (half), because the defaults sit
 on the bounds: roughness 1.0, black diffuse, opaque texels.
 ``InverseRenderer`` runs ``torch.optim.Adam`` with optax's defaults in place
-of ``optax.adam``.  BDPT has no gradients (``renderer.render_sample``
-refuses it).
+of ``optax.adam``.
 """
 from __future__ import annotations
 

@@ -18,11 +18,18 @@ one masked ratio walk over the vertex axis shared by a family's strategies.
 The shadow rays of all families are staged, then resolved by occlusion
 queries of at most ``OCC_CHUNK_RAYS`` rays each.
 
-Vertices are preallocated (N, V, ...) tensors written in place, vertex by
-vertex; each vertex's BSDF parameters are fetched once, during the walk,
-and reused by every strategy.  Nothing here reads a device value on the
-host: every mask is a ``torch.where``.  The t=1 splats are float atomics
-on the card, so a frame's bits there can differ from run to run.
+A walk builds each vertex as its own (N, ...) record, replaced out of
+place as later steps fill its fields in, and stacks the records into
+(N, V, ...) tensors once the subpath is done; each vertex's BSDF
+parameters are fetched once, during the walk, and reused by every
+strategy.  Nothing is written in place, so the estimate is differentiable
+under autograd with respect to the scene's tensors, as the JAX package's
+is under ``jax.grad``: the BSDF-sampled directions and pdfs are detached
+(``uber.sample``) and the queries return no graph, as there.  Nothing here
+reads a device value on the host: every mask is a ``torch.where``.  The
+t=1 splats are float atomics on the card (``index_add``, whose backward is
+a gather of the film's cotangent at the splat slots), so a frame's bits
+there can differ from run to run.
 
 Pinhole camera only (t=0 never contributes), as in the JAX package.
 """
@@ -67,56 +74,72 @@ def _vertex_slice(a: torch.Tensor, idxs: list[int]) -> torch.Tensor:
 
 
 @dataclass
-class Vertices(TensorRecord):
-    """Path-vertex storage with leading dims (N, V)."""
+class _VertexFields(TensorRecord):
+    """A path vertex's fields; the leading dims are ``Vertex``'s (N,) or
+    ``Vertices``' (N, V), then the shapes below."""
 
-    vtype: torch.Tensor  # (N, V) i32
-    p: torch.Tensor  # (N, V, 3)
-    ng: torch.Tensor  # (N, V, 3)
-    ns: torch.Tensor  # (N, V, 3)
-    t: torch.Tensor  # (N, V, 3) shading tangent
-    b: torch.Tensor  # (N, V, 3) shading bitangent
-    uv: torch.Tensor  # (N, V, 2)
-    wo: torch.Tensor  # (N, V, 3) toward the previous vertex
-    material: torch.Tensor  # (N, V) i32 (-1 none)
-    light: torch.Tensor  # (N, V) i32 area light at the vertex (-1)
-    light_idx: torch.Tensor  # (N, V) i32 light table id of a VT_LIGHT vertex
-    beta: torch.Tensor  # (N, V, 3) throughput up to the vertex
-    pdf_fwd: torch.Tensor  # (N, V) area density from the previous vertex
-    pdf_rev: torch.Tensor  # (N, V) area density from the next vertex
-    delta: torch.Tensor  # (N, V) bool: reached by delta sampling
-    on_surface: torch.Tensor  # (N, V) bool: area conversions take a cosine
-    valid: torch.Tensor  # (N, V) bool
+    vtype: torch.Tensor  # i32
+    p: torch.Tensor  # (3,)
+    ng: torch.Tensor  # (3,)
+    ns: torch.Tensor  # (3,)
+    t: torch.Tensor  # (3,) shading tangent
+    b: torch.Tensor  # (3,) shading bitangent
+    uv: torch.Tensor  # (2,)
+    wo: torch.Tensor  # (3,) toward the previous vertex
+    material: torch.Tensor  # i32 (-1 none)
+    light: torch.Tensor  # i32 area light at the vertex (-1)
+    light_idx: torch.Tensor  # i32 light table id of a VT_LIGHT vertex
+    beta: torch.Tensor  # (3,) throughput up to the vertex
+    pdf_fwd: torch.Tensor  # area density from the previous vertex
+    pdf_rev: torch.Tensor  # area density from the next vertex
+    delta: torch.Tensor  # bool: reached by delta sampling
+    on_surface: torch.Tensor  # bool: area conversions take a cosine
+    valid: torch.Tensor  # bool
+
+
+class Vertex(_VertexFields):
+    """One path vertex of every lane, leading dim (N,): a walk's record of
+    the vertex while its fields are filled in."""
 
     @classmethod
-    def empty(cls, n: int, v: int, device):
+    def empty(cls, n: int, device) -> "Vertex":
         def z(*shape, dtype=torch.float32):
-            return torch.zeros((n, v) + shape, dtype=dtype, device=device)
+            return torch.zeros((n,) + shape, dtype=dtype, device=device)
 
         def neg():
-            return torch.full((n, v), -1, dtype=torch.int32, device=device)
+            return torch.full((n,), -1, dtype=torch.int32, device=device)
 
         return cls(vtype=z(dtype=torch.int32), p=z(3), ng=z(3), ns=z(3), t=z(3), b=z(3),
                    uv=z(2), wo=z(3), material=neg(), light=neg(), light_idx=neg(),
                    beta=z(3), pdf_fwd=z(), pdf_rev=z(), delta=z(dtype=torch.bool),
                    on_surface=z(dtype=torch.bool), valid=z(dtype=torch.bool))
 
-    def _map(self, fn) -> "Vertices":
-        return Vertices(**{f.name: fn(getattr(self, f.name))
-                           for f in dataclasses.fields(self)})
+    def set(self, **fields) -> "Vertex":
+        """A copy with ``fields`` replaced, each value (a tensor or a Python
+        scalar) broadcast to its field's shape and dtype; the other fields
+        are shared."""
+        def fit(old, v):
+            if isinstance(v, torch.Tensor):
+                return v.to(old.dtype).expand(old.shape)
+            return torch.full(old.shape, v, dtype=old.dtype, device=old.device)
 
-    def at(self, i: int) -> "Vertices":
-        """Vertex i as (N, ...) views."""
-        return self._map(lambda a: a[:, i])
+        return dataclasses.replace(self, **{k: fit(getattr(self, k), v)
+                                            for k, v in fields.items()})
+
+
+class Vertices(_VertexFields):
+    """A finished subpath: the fields of its ``Vertex`` records stacked to
+    leading dims (N, V)."""
+
+    @classmethod
+    def stack(cls, verts: list[Vertex]) -> "Vertices":
+        return cls(**{f.name: torch.stack([getattr(v, f.name) for v in verts], dim=1)
+                      for f in dataclasses.fields(_VertexFields)})
 
     def gather(self, idxs: list[int]) -> "Vertices":
         """The vertices at static indices ``idxs`` stacked to (S, N, ...)."""
-        return self._map(lambda a: _vertex_slice(a, idxs))
-
-    def set_vertex(self, i: int, **fields):
-        """Write vertex i's fields in place."""
-        for k, v in fields.items():
-            getattr(self, k)[:, i] = v
+        return Vertices(**{f.name: _vertex_slice(getattr(self, f.name), idxs)
+                           for f in dataclasses.fields(self)})
 
 
 def _gather_bsdfs(bsdfs: list[UberBSDF], idxs: list[int]) -> UberBSDF:
@@ -164,13 +187,13 @@ def _zero_bsdf(n: int, device, like: UberBSDF | None = None) -> UberBSDF:
 
 
 def random_walk(scene: Scene, rays: Rays, beta: torch.Tensor, pdf_dir: torch.Tensor,
-                stream: rng.SampleStream, verts: Vertices, start_index: int,
+                stream: rng.SampleStream, verts: list[Vertex], start_index: int,
                 n_steps: int, importance_mode: bool, cfg: IntegratorConfig, intersect):
-    """Extend a subpath by up to ``n_steps`` surface vertices, written into
-    ``verts`` in place.  Returns (verts, stream, per-vertex BSDFs): a list
-    of V records, the origin's lobe-less."""
+    """Extend a subpath by up to ``n_steps`` surface vertices, each a new
+    record in the list ``verts``.  Returns (verts, stream, per-vertex
+    BSDFs): a list of V records, the origin's lobe-less."""
     active = rays.active
-    n, n_verts = verts.p.shape[0], verts.p.shape[1]
+    n, n_verts = rays.n, len(verts)
     step_bsdfs: dict[int, UberBSDF] = {}
 
     for step in range(n_steps):
@@ -181,10 +204,10 @@ def random_walk(scene: Scene, rays: Rays, beta: torch.Tensor, pdf_dir: torch.Ten
         bsdf, it = fetch_bsdf(scene, it)
         step_bsdfs[i] = bsdf
 
-        pv = verts.at(i - 1)
+        pv = verts[i - 1]
         pdf_fwd = _convert_density(pdf_dir, pv.p, it.p, it.ng, torch.ones_like(hit.valid))
-        verts.set_vertex(
-            i, vtype=VT_SURFACE, p=it.p, ng=it.ng, ns=it.ns, t=it.dpdu, b=it.dpdv,
+        verts[i] = verts[i].set(
+            vtype=VT_SURFACE, p=it.p, ng=it.ng, ns=it.ns, t=it.dpdu, b=it.dpdv,
             uv=it.uv, wo=it.wo, material=it.material, light=it.light,
             beta=torch.where(alive[:, None], beta, 0.0),
             pdf_fwd=torch.where(alive, pdf_fwd, 0.0), on_surface=alive, valid=alive)
@@ -197,7 +220,7 @@ def random_walk(scene: Scene, rays: Rays, beta: torch.Tensor, pdf_dir: torch.Ten
         # reverse pdf of the previous vertex (wi and wo swapped)
         pdf_rev_solid = torch.where(bs.is_specular, 0.0, uber.pdf(bsdf, bs.wi, wo_l))
         prev_rev = _convert_density(pdf_rev_solid, it.p, pv.p, pv.ng, pv.on_surface)
-        verts.set_vertex(i - 1, pdf_rev=torch.where(alive, prev_rev, verts.pdf_rev[:, i - 1]))
+        verts[i - 1] = pv.set(pdf_rev=torch.where(alive, prev_rev, pv.pdf_rev))
 
         cos_wi = torch.abs(m.dot(it.ns, wi_w))
         w_mul = bs.f * m.safe_div(cos_wi, bs.pdf)[..., None]
@@ -214,26 +237,28 @@ def random_walk(scene: Scene, rays: Rays, beta: torch.Tensor, pdf_dir: torch.Ten
         active = extend
         # a vertex's delta flag records how it was reached: mark vertex i+1
         if i + 1 < n_verts:
-            verts.set_vertex(i + 1, delta=torch.where(extend, bs.is_specular, False))
+            verts[i + 1] = verts[i + 1].set(delta=torch.where(extend, bs.is_specular, False))
 
-    zero = _zero_bsdf(n, verts.p.device, step_bsdfs.get(start_index))
+    zero = _zero_bsdf(n, rays.o.device, step_bsdfs.get(start_index))
     return verts, stream, [step_bsdfs.get(i, zero) for i in range(n_verts)]
 
 
 def generate_camera_subpath(scene, camera, rays, stream, n_verts, cfg, intersect):
     n = rays.n
-    verts = Vertices.empty(n, n_verts, rays.o.device)
+    verts = [Vertex.empty(n, rays.o.device)] * n_verts
     _, pdf_dir = camera.pdf_we(rays.d)
-    verts.set_vertex(0, vtype=VT_CAMERA, p=camera.position, ng=camera.forward,
-                     ns=camera.forward, beta=1.0, pdf_fwd=1.0, valid=True)
+    verts[0] = verts[0].set(vtype=VT_CAMERA, p=camera.position, ng=camera.forward,
+                            ns=camera.forward, beta=1.0, pdf_fwd=1.0, valid=True)
     beta = torch.ones((n, 3), dtype=torch.float32, device=rays.o.device)
-    return random_walk(scene, rays, beta, pdf_dir, stream, verts, 1, n_verts - 1,
-                       importance_mode=False, cfg=cfg, intersect=intersect)
+    verts, stream, bsdfs = random_walk(scene, rays, beta, pdf_dir, stream, verts, 1,
+                                       n_verts - 1, importance_mode=False, cfg=cfg,
+                                       intersect=intersect)
+    return Vertices.stack(verts), stream, bsdfs
 
 
 def generate_light_subpath(scene, stream, n_verts, cfg, intersect, n):
     device = stream.pixel.device
-    verts = Vertices.empty(n, n_verts, device)
+    verts = [Vertex.empty(n, device)] * n_verts
     u_pick, stream = rng.next_1d(stream)
     u_pos, stream = rng.next_2d(stream)
     u_dir, stream = rng.next_2d(stream)
@@ -246,8 +271,8 @@ def generate_light_subpath(scene, stream, n_verts, cfg, intersect, n):
     beta0 = le.le / torch.clamp_min(pdf_origin, 1e-20)[:, None]
     tl, bl = m.build_orthonormal_basis(le.n)
     is_inf = ltype == LIGHT_DIRECTIONAL
-    verts.set_vertex(
-        0, vtype=VT_LIGHT, p=le.p, ng=le.n, ns=le.n, t=tl, b=bl,
+    verts[0] = verts[0].set(
+        vtype=VT_LIGHT, p=le.p, ng=le.n, ns=le.n, t=tl, b=bl,
         light_idx=torch.where(usable, l_idx, -1),
         beta=torch.where(usable[:, None], beta0, 0.0),
         # a directional light's origin density is that of re-sampling its
@@ -272,11 +297,10 @@ def generate_light_subpath(scene, stream, n_verts, cfg, intersect, n):
     # disk density 1/(pi r^2) projected onto the surface, not a solid-angle
     # conversion of the delta direction's pdf
     if n_verts > 1:
-        v1 = verts.at(1)
+        v1 = verts[1]
         pdf1_inf = le.pdf_pos * torch.abs(m.dot(le.d, v1.ng))
-        verts.set_vertex(1, pdf_fwd=torch.where(is_inf & v1.valid, pdf1_inf,
-                                                verts.pdf_fwd[:, 1]))
-    return verts, stream, bsdfs
+        verts[1] = v1.set(pdf_fwd=torch.where(is_inf & v1.valid, pdf1_inf, v1.pdf_fwd))
+    return Vertices.stack(verts), stream, bsdfs
 
 
 # --------------------------------------------------------------------------
@@ -563,9 +587,10 @@ def _family_t1(scene, camera, cam, light, light_bsdfs, pairs, cfg, n, film,
 
 
 def _splat(L: torch.Tensor, flat: torch.Tensor, contrib: torch.Tensor) -> torch.Tensor:
-    """Add the (S, N, 3) t=1 contributions into the ray slots ``flat``: a
-    scatter-add, float atomics on the card."""
-    return L.index_add_(0, flat.reshape(-1), contrib.reshape(-1, 3))
+    """``L`` plus the (S, N, 3) t=1 contributions added into the ray slots
+    ``flat``: a scatter-add (float atomics on the card), out of place, whose
+    backward gathers the cotangent of ``L`` at ``flat``."""
+    return L.index_add(0, flat.reshape(-1), contrib.reshape(-1, 3))
 
 
 def _rays_map(fn, *rays: Rays) -> Rays:

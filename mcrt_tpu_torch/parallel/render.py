@@ -41,6 +41,26 @@ def _sliced(mesh, intersector) -> bool:
     return axis_size(mesh, RAYS_AXIS) > 1 and not _ring_owns_rays(intersector)
 
 
+class _GroupSum(torch.autograd.Function):
+    """The sum of a tensor over a process group (an ``all_reduce``), with
+    a backward: each rank's input reaches every rank's sum, so its
+    cotangent is the sum of every rank's cotangent, the same
+    ``all_reduce``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def _local_part(scene, camera, frames, cfg, intersector, mesh):
     """This rank's share of the sharded mean: (the mean of its frames over
     its lanes, with autograd's graph where it is on; the pixel of each lane
@@ -49,13 +69,8 @@ def _local_part(scene, camera, frames, cfg, intersector, mesh):
     share = pix = None
     if _sliced(mesh, intersector):
         group = mesh.get_group(RAYS_AXIS)
-
-        def reduce_film(film):
-            film = film.contiguous()
-            dist.all_reduce(film, group=group)
-            return film
-
-        share = SlotSlice(*rays_share(mesh, cfg.width * cfg.height), reduce_film)
+        share = SlotSlice(*rays_share(mesh, cfg.width * cfg.height),
+                          lambda film: _GroupSum.apply(film, group))
         pix = slot_pixels(cfg.width, cfg.height, camera.position.device, share.lo, share.hi)
     out = torch.stack([render_sample(scene, camera, f, cfg, intersector, share)[0]
                        for f in spp_share(mesh, frames)])

@@ -3,9 +3,9 @@
 ``render_sample`` traces one sample per pixel: the frame-wide Halton jitter,
 pinhole rays in Morton pixel order, a per-pixel sample stream and the
 integrator (the path tracer or BDPT), then the radiance back in row-major
-pixel order.  ``render_sample`` runs with autograd on: the path tracer is
-differentiable with respect to the scene's tensors (inverse rendering,
-``diff/``); BDPT is refused when a scene tensor requires grad.
+pixel order.  ``render_sample`` runs with autograd on: both integrators
+are differentiable with respect to the scene's tensors (inverse rendering,
+``diff/``).
 ``render_frame_fn`` folds ``samples_per_pass`` such samples into the
 accumulator, and ``Renderer`` owns the scene, the intersector and the
 accumulator on one device; its ``display_image`` applies the optional
@@ -14,7 +14,6 @@ jits one program per frame this is a Python loop over the bounces.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 import time as _time
 from typing import Callable, NamedTuple
@@ -25,7 +24,7 @@ import torch
 from .accel import Intersector, build_intersector
 from .camera.pinhole import PinholeCamera, pixel_uv
 from .config import IntegratorType, RenderConfig
-from .core.types import Rays, TensorRecord, default_device
+from .core.types import Rays, default_device
 from .film.accumulate import Accumulator, accumulate
 from .film.denoise import bilateral
 from .film.tonemap import reinhard
@@ -99,16 +98,6 @@ def slot_pixels(w: int, h: int, device, lo: int = 0, hi: int | None = None) -> t
     return _pixel_order_tensors(w, h, device)[0][lo:hi].long()
 
 
-def requires_grad(record) -> bool:
-    """Whether any tensor of a (nested) tensor record requires grad."""
-    if isinstance(record, torch.Tensor):
-        return record.requires_grad
-    if isinstance(record, TensorRecord):
-        return any(requires_grad(getattr(record, f.name))
-                   for f in dataclasses.fields(record))
-    return False
-
-
 class SlotSlice(NamedTuple):
     """One rank's share of a rays-sharded render: trace slots lo..hi of
     the Morton-ordered wavefront, and ``reduce_film``, which sums an
@@ -124,19 +113,13 @@ def render_sample(scene: Scene, camera: PinholeCamera, frame: int,
                   cfg: RenderConfig, intersector: Intersector,
                   share: SlotSlice | None = None):
     """One sample-per-pixel wavefront: ((H*W, 3) radiance in row-major pixel
-    order, (2,) jitter used).  Differentiable under the path tracer.
+    order, (2,) jitter used).  Differentiable under either integrator.
 
     With ``share`` only its trace slots are traced, and the radiance is
     theirs, in slot order (``slot_pixels`` gives their pixels).  Sample
     streams are keyed by the pixel (Sobol) and
     by the full wavefront's row (RANDOM), so each traced pixel gets the
     radiance it gets in the full render."""
-    if (cfg.integrator.type == IntegratorType.BDPT and torch.is_grad_enabled()
-            and requires_grad(scene)):
-        raise NotImplementedError(
-            "BDPT gradients are not ported yet (ROADMAP, Queue 1: BDPT gradients): "
-            "its subpath vertices are written in place and its t=1 splat has no "
-            "backward; differentiate the path tracer or render under torch.no_grad()")
     w, h = cfg.width, cfg.height
     device = camera.position.device
     jitter = frame_jitter(frame, device)
@@ -194,7 +177,7 @@ class Renderer:
         self.accum = self.accum.reset()
         self._render_start = None
 
-    def update_scene(self, scene: Scene):
+    def update_scene(self, scene: Scene, rebuild_accel: bool = True):
         """Swap in an edited scene, refit or rebuild the accel, and reset
         the accumulation.  The edit is read from tensor identity, as in
         the JAX package: a scene that shares the current ``indices`` and
@@ -204,22 +187,25 @@ class Renderer:
         refitted when the ``positions`` are shared too, an instance-only
         edit (``set_shape_transform``, ``refit_two_level_scene``); any
         other edit rebuilds on the host.  A refit runs on the scene's
-        device and makes no host sync."""
+        device and makes no host sync.  ``rebuild_accel=False`` keeps the
+        intersector as it is, for an edit that leaves the geometry alone
+        (materials, lights)."""
         from .accel import blocked_intersector, two_level_intersector
         from .accel.blocked import BlockedAccel, refit_blocked
         from .accel.two_level import TwoLevelAccel, refit_two_level_scene
 
         old, scene = self.scene.geometry, scene.to(self.device)  # keeps tensors on the device
         self.scene = scene
-        acc, geom = self.intersector.accel, scene.geometry
-        same_faces = geom.indices is old.indices and geom.face_valid is old.face_valid
-        if isinstance(acc, BlockedAccel) and same_faces:
-            self.intersector = blocked_intersector(refit_blocked(acc, geom))
-        elif (isinstance(acc, TwoLevelAccel) and same_faces
-              and geom.positions is old.positions):
-            self.intersector = two_level_intersector(refit_two_level_scene(acc, scene))
-        else:
-            self.intersector = build_intersector(scene, self.cfg)
+        if rebuild_accel:
+            acc, geom = self.intersector.accel, scene.geometry
+            same_faces = geom.indices is old.indices and geom.face_valid is old.face_valid
+            if isinstance(acc, BlockedAccel) and same_faces:
+                self.intersector = blocked_intersector(refit_blocked(acc, geom))
+            elif (isinstance(acc, TwoLevelAccel) and same_faces
+                  and geom.positions is old.positions):
+                self.intersector = two_level_intersector(refit_two_level_scene(acc, scene))
+            else:
+                self.intersector = build_intersector(scene, self.cfg)
         self.reset()
 
     def update_camera(self, camera: PinholeCamera):

@@ -1,8 +1,9 @@
 """Device discovery and memory accounting (counterpart of
 ``mcrt_tpu/runtime/platform.py``): ``enumerate_devices`` and
-``device_memory_stats`` read ``torch.cuda``; ``BufferManager`` keeps named
-byte totals of tensors (tensor records, dicts, lists) with the largest
-total seen."""
+``device_memory_stats`` read ``torch.cuda``; ``nbytes`` counts the bytes of
+the tensors in a record (the JAX package's ``_nbytes``); ``BufferManager``
+keeps named byte totals of tensors (tensor records, dicts, lists) with the
+largest total seen."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,15 +34,25 @@ def enumerate_devices() -> list[DeviceInfo]:
     return out
 
 
-def device_memory_stats(index: int = 0) -> dict:
-    """The card's allocator statistics (``bytes_in_use``, ``peak_bytes_in_use``,
-    ``bytes_reserved``, ``bytes_limit``); empty without a card."""
-    if not torch.cuda.is_available() or index >= torch.cuda.device_count():
+def device_memory_stats(device=0) -> dict:
+    """One card's memory: ``bytes_in_use`` and ``peak_bytes_in_use`` (the
+    caching allocator's live tensors, ``torch.cuda.memory_stats``),
+    ``bytes_reserved`` (held by the allocator) and ``bytes_limit`` (the
+    card's memory, ``torch.cuda.mem_get_info``).  ``device`` is a card's
+    index or a torch device; empty for a CPU device or without a card."""
+    if not isinstance(device, int):
+        device = torch.device(device)
+        if device.type != "cuda":
+            return {}
+        device = torch.cuda.current_device() if device.index is None else device.index
+    if not torch.cuda.is_available() or device >= torch.cuda.device_count():
         return {}
-    return {"bytes_in_use": int(torch.cuda.memory_allocated(index)),
-            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(index)),
-            "bytes_reserved": int(torch.cuda.memory_reserved(index)),
-            "bytes_limit": int(torch.cuda.get_device_properties(index).total_memory)}
+    stats = torch.cuda.memory_stats(device)
+    _, total = torch.cuda.mem_get_info(device)
+    return {"bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+            "bytes_reserved": int(stats.get("reserved_bytes.all.current", 0)),
+            "bytes_limit": int(total)}
 
 
 def nbytes(tree) -> int:

@@ -13,7 +13,8 @@ then held to ``|a - b| <= rtol * |b| + atol * max|b|`` with ``GRAD_TOL``'s
 (rtol, atol): the tolerance of the port against the JAX package on the
 CPU (``tests/test_torch_diff.py``).  On the card the backward of a gather
 is an atomic scatter-add, so its gradients differ from the CPU's in their
-last bits and are never compared for equality.
+last bits and are never compared for equality; so do BDPT's forward
+radiances, whose t=1 splats are atomic too.
 """
 from __future__ import annotations
 
@@ -44,17 +45,19 @@ def sample_grads(scene, camera, cfg, intersector, view, frames, weight):
 
 
 def device_parity(builder, view_name: str, size: int, spp: int, depth: int, device,
-                  float_texels: bool = False):
+                  float_texels: bool = False, integrator: str = "PATH"):
     """The scene of ``builder`` on ``device`` and on the CPU, and each
-    device's gradient over the (sample, pixel) pairs that agree: returns
-    (share of agreeing pairs, {field: (device grad on the CPU, CPU grad)})."""
+    device's gradient over the (sample, pixel) pairs that agree, under the
+    integrator named ``integrator`` (``PATH`` or ``BDPT``): returns (share
+    of agreeing pairs, {field: (device grad on the CPU, CPU grad)})."""
     from ..accel import build_intersector
-    from ..config import IntegratorConfig, RenderConfig
+    from ..config import IntegratorConfig, IntegratorType, RenderConfig
     from ..diff import estimators
     from ..renderer import render_sample
 
     cfg = RenderConfig(width=size, height=size, spp=spp,
-                       integrator=IntegratorConfig(max_depth=depth))
+                       integrator=IntegratorConfig(type=IntegratorType[integrator],
+                                                   max_depth=depth))
     view = getattr(estimators, view_name)()
     runs = {}
     for dev in (device, "cpu"):

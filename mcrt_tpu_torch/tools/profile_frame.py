@@ -3,7 +3,8 @@ spends its time, on a GPU.
 
     python -m mcrt_tpu_torch.tools.profile_frame [SCENE] [--integrator bdpt]
         [--out chiprun_out]
-    python -m mcrt_tpu_torch.tools.profile_frame [SCENE] --grad [--out DIR]
+    python -m mcrt_tpu_torch.tools.profile_frame [SCENE] --grad [--integrator bdpt]
+        [--out DIR]
 
 It renders SCENE through ``Renderer`` at 512x512, 8 bounces, Sobol, SAH
 blocks, with the path tracer (the default) or BDPT: one of the configurations
@@ -35,7 +36,8 @@ frame:
    ``<out>/profile_frame_<SCENE>_<INTEGRATOR>.txt``.
 
 With ``--grad`` it profiles an inverse-rendering step instead, as
-``chip_smoke.py``'s ``[grad]`` phase runs it: ``full_params``, 1 spp, the
+``chip_smoke.py``'s ``[grad]`` phase runs it (``[bdpt_grad]`` under
+``--integrator bdpt``): ``full_params``, 1 spp, the
 mean squared error against a render of other samples, ``torch.optim.Adam``
 (lr 0.05).  After one warm-up step: the host syncs of one step; ``STEPS``
 steps, each split by ``torch.cuda.synchronize()`` into forward (the loss),
@@ -43,7 +45,7 @@ backward (``loss.backward()``) and optimizer (``Adam.step``) times, with the
 median of each and the peak memory; then ``torch.profiler`` over one
 unsynchronised step: wall and device time, the busy share, and the kernels
 with the most device time (full table in
-``<out>/profile_frame_<SCENE>_grad.txt``).
+``<out>/profile_frame_<SCENE>_<INTEGRATOR>_grad.txt``).
 """
 from __future__ import annotations
 
@@ -129,8 +131,8 @@ def grad_main(args) -> int:
     """``--grad``: one inverse-rendering step split into forward, backward
     and optimizer time (module docstring)."""
     from ..accel import build_intersector
-    from ..config import (BuilderType, BVHConfig, IntegratorConfig, RenderConfig,
-                          SamplerConfig, SamplerType)
+    from ..config import (BuilderType, BVHConfig, IntegratorConfig, IntegratorType,
+                          RenderConfig, SamplerConfig, SamplerType)
     from ..diff import estimators
     from ..parallel.render import render_spp_batch
     from ..scene import builders
@@ -140,7 +142,8 @@ def grad_main(args) -> int:
     cfg = RenderConfig(width=SIZE, height=SIZE, spp=1,
                        sampler=SamplerConfig(type=SamplerType.SOBOL),
                        bvh=BVHConfig(builder=BuilderType.SAH),
-                       integrator=IntegratorConfig(max_depth=DEPTH))
+                       integrator=IntegratorConfig(
+                           type=IntegratorType[args.integrator.upper()], max_depth=DEPTH))
     scene, camera = getattr(builders, args.scene)(device=device)
     isect = build_intersector(scene, cfg)
     view = estimators.full_params()
@@ -149,7 +152,8 @@ def grad_main(args) -> int:
         target = render_spp_batch(scene, camera, [1000], cfg, isect)
     params = {k: v.detach().clone().requires_grad_() for k, v in view.get(scene).items()}
     opt = torch.optim.Adam(list(params.values()), lr=0.05)
-    print(f"{args.scene}: {SIZE}^2, {DEPTH} bounces, 1 spp, full_params; card {card_line()}")
+    print(f"{args.scene}: {SIZE}^2, {DEPTH} bounces, 1 spp, {args.integrator}, full_params; "
+          f"card {card_line()}")
 
     def step(sync=False):
         marks = []
@@ -183,8 +187,8 @@ def grad_main(args) -> int:
               f"{STEPS}: " + ", ".join(f"{p[i]:.1f}" for p in parts) + ")")
     print(f"[step] a step {statistics.median(sum(p) for p in parts):.2f} ms, peak memory "
           f"{peak:.2f} GiB")
-    device_share(step, "one step",
-                 os.path.join(args.out, f"profile_frame_{args.scene}_grad.txt"))
+    device_share(step, "one step", os.path.join(
+        args.out, f"profile_frame_{args.scene}_{args.integrator}_grad.txt"))
     return 0
 
 
@@ -193,7 +197,7 @@ def main(argv=None) -> int:
     ap.add_argument("scene", nargs="?", default="sphere_field", choices=SCENES)
     ap.add_argument("--integrator", default="path", choices=("path", "bdpt"))
     ap.add_argument("--grad", action="store_true",
-                    help="profile a gradient step of the path tracer instead of a frame")
+                    help="profile a gradient step of the integrator instead of a frame")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -189,11 +189,96 @@ def test_cli_info_prints(capsys):
     assert "native library:" in out
 
 
-@pytest.mark.parametrize("argv, match", [(["view", "--device", "cpu"], "viewer"),
-                                         (["bench"], "W1")])
+@pytest.mark.parametrize("argv, match", [pytest.param(["bench"], "W1", id="argv1-W1")])
 def test_cli_view_and_bench_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv)
+
+
+VIEW_ARGS = ["view", "--device", "cpu", "--port", "0", "--width", "8", "--height", "8",
+             "--max-depth", "1"]
+
+
+def test_cli_view_serves_and_stops_on_interrupt(monkeypatch):
+    """``cli.main(["view", ...])`` serves the accumulating image until a
+    KeyboardInterrupt, then stops the viewer, closes its socket and returns
+    0.  A client thread waits for 2 samples over HTTP, reads the PNG, then
+    interrupts the main thread."""
+    import _thread
+    import threading
+    import time
+    import urllib.request
+
+    from mcrt_tpu_torch import viewer as viewer_mod
+
+    made, seen, errors = [], {}, []
+
+    class Recorded(viewer_mod.ProgressiveViewer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(viewer_mod, "ProgressiveViewer", Recorded)
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{made[0].port}{path}",
+                                    timeout=30) as resp:
+            return resp.read()
+
+    def client():
+        import json
+
+        try:
+            deadline = time.monotonic() + 120
+            while not made and time.monotonic() < deadline:
+                time.sleep(0.05)
+            while json.loads(get("/api/status"))["spp"] < 2 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            seen["status"] = json.loads(get("/api/status"))
+            seen["png"] = get("/image.png")
+        except Exception as e:  # reported below, after the interrupt
+            errors.append(e)
+        finally:
+            _thread.interrupt_main()
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    assert cli.main(VIEW_ARGS) == 0
+    t.join(timeout=60)
+    assert not errors, errors
+    assert seen["status"]["spp"] >= 2 and seen["status"]["width"] == 8
+    assert seen["png"][:8] == b"\x89PNG\r\n\x1a\n"
+    assert made[0].server is None  # stopped, its socket closed
+
+
+def test_cli_view_subprocess_exits_0_on_sigint(tmp_path):
+    """``python -m mcrt_tpu_torch view`` as a subprocess: it prints the
+    address it serves, answers ``/image.png``, and exits 0 after SIGINT."""
+    import re
+    import signal
+    import threading
+    import urllib.request
+
+    proc = subprocess.Popen([sys.executable, "-m", "mcrt_tpu_torch", *VIEW_ARGS], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    killer = threading.Timer(180, proc.kill)  # a hung server fails the test, not the run
+    killer.start()
+    try:
+        line = proc.stdout.readline()
+        port = re.search(r"serving http://127\.0\.0\.1:(\d+)/", line)
+        assert port, line + proc.stderr.read()[-2000:]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port.group(1)}/image.png",
+                                    timeout=60) as resp:
+            png = resp.read()
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    assert proc.returncode == 0, err[-2000:]
 
 
 def test_cli_config_needs_yaml(tmp_path, monkeypatch):

@@ -739,6 +739,68 @@ def test_bdpt_occlusion_chunk_through_k1_k3(cuda_device):
     assert int(b_k.sum()) > 1000
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["material_params", "light_params"])
+def test_bdpt_card_gradients_match_cpu_gradients(cuda_device, view):
+    """BDPT gradients of the image sum (``cornell_box`` 16x16, 4 spp,
+    depth 2), the card's against the CPU's, over the (sample, pixel) pairs
+    whose forward radiance agrees, within ``grad_check.GRAD_TOL``."""
+    share, grads = grad_check.device_parity(cornell_box, view, 16, 4, 2, cuda_device,
+                                            integrator="BDPT")
+    assert share >= grad_check.MIN_AGREE
+    for k, (err, scale, ok) in grad_check.compare(grads).items():
+        assert ok, (k, err, scale)
+    assert any(float(a.abs().sum()) > 0 for a, _ in grads.values())
+
+
+@pytest.mark.cuda
+def test_viewer_on_the_card(cuda_device):
+    """The viewer on the card: a one-ray pick through the kernels' padding
+    hits what the CPU's pick hits, a material edit keeps the accel, and the
+    published stats carry the card's memory."""
+    from mcrt_tpu_torch import Renderer, RenderConfig
+    from mcrt_tpu_torch.config import IntegratorConfig
+    from mcrt_tpu_torch.viewer import ProgressiveViewer
+
+    cfg = RenderConfig(width=32, height=32, integrator=IntegratorConfig(max_depth=2))
+    views = {d: ProgressiveViewer(Renderer(*cornell_box(device=d), cfg, device=d), port=0)
+             for d in (cuda_device, "cpu")}
+    try:
+        picks = {d: v.pick(0.5, 0.4) for d, v in views.items()}
+        assert picks[cuda_device]["hit"] and picks[cuda_device]["shape"] == picks["cpu"]["shape"]
+        v = views[cuda_device]
+        isect = v.renderer.intersector
+        v.enqueue_material(0, diffuse=(0.9, 0.1, 0.1))
+        v.serve(max_steps=2)
+        assert v.renderer.intersector is isect and v.status()["spp"] == 2
+        st = v.stats()
+        assert 0 < st["device_bytes_in_use"] < st["device_bytes_limit"]
+    finally:
+        for v in views.values():
+            v.stop()
+
+
+@pytest.mark.cuda
+def test_checkpoint_resumes_a_card_render_bit_for_bit(cuda_device, tmp_path):
+    from mcrt_tpu_torch import Renderer, RenderConfig
+    from mcrt_tpu_torch.config import IntegratorConfig
+    from mcrt_tpu_torch.utils import checkpoint
+
+    cfg = RenderConfig(width=64, height=64, integrator=IntegratorConfig(max_depth=3))
+    scene, camera = textured_hall(device=cuda_device)
+    whole = Renderer(scene, camera, cfg, device=cuda_device)
+    whole.step(4)
+    first = Renderer(scene, camera, cfg, device=cuda_device)
+    first.step(2)
+    path = str(tmp_path / "acc.npz")
+    checkpoint.save_accumulator(path, first.accum)
+    resumed = Renderer(scene, camera, cfg, device=cuda_device)
+    resumed.accum, _ = checkpoint.load_accumulator(path)
+    assert resumed.accum.weighted.device.type == "cuda"
+    resumed.step(2)
+    assert torch.equal(resumed.accum.weighted, whole.accum.weighted)
+
+
 @pytest.mark.parametrize("isolated", [False, True])
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, isolated):
     """With no CUDA device, and in a directory holding only the script,

@@ -23,8 +23,9 @@ against finite differences.
   tolerances; its LBVH case becomes a blocked case on ``glass_gallery`` (31
   blocks), so the visit-list queries (K1-K3's plain versions) are
   differentiated through.
-- ``make_train_step``, the detached BSDF sample, the float texels, the
-  queries' missing graph and the refusal of BDPT gradients.
+- ``make_train_step``, the detached BSDF sample, the float texels and the
+  queries' missing graph.  BDPT's gradients are held in
+  ``tests/test_torch_bdpt_grad.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -47,7 +48,7 @@ from mcrt_tpu_torch.accel import two_level as ttl
 from mcrt_tpu_torch.bsdf import uber
 from mcrt_tpu_torch.bsdf.materials import fetch_bsdf
 from mcrt_tpu_torch.camera.pinhole import PinholeCamera
-from mcrt_tpu_torch.config import (IntegratorConfig, IntegratorType, RenderConfig)
+from mcrt_tpu_torch.config import IntegratorConfig, RenderConfig
 from mcrt_tpu_torch.core import math as m
 from mcrt_tpu_torch.core.types import Rays
 from mcrt_tpu_torch.diff import estimators as E
@@ -408,16 +409,3 @@ def test_queries_build_no_graph(builder):
     assert hit.t.grad_fn is None and int(hit.valid.sum()) > 100
     assert hit.u.requires_grad
     assert isect.occluded(scene, rays).grad_fn is None
-
-
-def test_bdpt_with_parameters_that_require_grad_raises():
-    scene, camera, _, _, _ = _setup(spp=1, size=8)
-    cfg = RenderConfig(width=8, height=8,
-                       integrator=IntegratorConfig(type=IntegratorType.BDPT, max_depth=2))
-    isect = build_intersector(scene, cfg)
-    p = {k: v.detach().clone().requires_grad_() for k, v in E.material_params().get(scene).items()}
-    with pytest.raises(NotImplementedError, match="BDPT gradients"):
-        render_sample(E.material_params().set(scene, p), camera, 0, cfg, isect)
-    with torch.no_grad():  # without a graph it renders
-        assert bool(torch.isfinite(
-            render_sample(E.material_params().set(scene, p), camera, 0, cfg, isect)[0]).all())
