@@ -234,6 +234,36 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    render; a ``full_params`` tree saved and restored.  ``[profiler]``:
    ``utils/profiling.py`` spans around 2 synced frames under
    ``device_trace``: the report printed, the trace file holding the spans.
+12. The LBVH and the brute-force oracle (``AccelType.LBVH``/``BRUTE``,
+   plain PyTorch on the card), each phase with the launch counters set to
+   0 just before the LBVH's or the oracle's work and read just after: K1-K7
+   must read 0, so the accel choice was honoured.  ``[lbvh]``
+   (``sphere_field``, leaf size 2): the build's card time, fixpoint steps
+   and host syncs; on phase 2's 512x512 primary and bounce wavefronts the
+   closest-hit and occlusion queries' times, loop iterations and host syncs
+   (one every ``traverse.SYNC_EVERY`` = 8 iterations), and
+   ``traversal_iterations``' lockstep count and visits; one warm and
+   ``LBVH_FRAMES`` timed 512x512, depth-8 frames through ``Renderer`` and
+   one more with its synchronizing calls counted; the card's build equal
+   to a CPU build field for field; the hits against the blocked queries'
+   (K1-K3) under ``tests/test_lbvh.py``'s rules (flags equal, t at rtol
+   1e-5 / atol 1e-6, prim ids on more than 97% of hits, occlusion equal),
+   where a ray may differ only as the list walks may differ from their
+   plain versions (``walk_allowed``) and only if the oracle agrees with
+   the LBVH on it.  ``[brute]``: the oracle against K4/K5's queries on
+   ``textured_hall``'s full 512x512 wavefronts and against the LBVH on
+   ``ORACLE_RAYS`` = 4,096 rays of ``sphere_field``'s (both exactly, at
+   those rules), against K1-K3 there and against K6/K7 on 4,096 rays of
+   ``sphere_field_instanced`` through its baked world-space faces (within
+   ``walk_allowed``; K6/K7 at rtol 2e-4 / atol 2e-4 and shape ids on 99%,
+   ``tests/test_two_level.py``'s bounds for the bake's rounding); one
+   ``cornell_box`` frame (512x512, depth 8) with ``accel=BRUTE`` under the
+   sync check against the ``AUTO`` (K4/K5) frame of the same streams at the
+   parity share; every query time beside its reference's.
+   ``[ring4_brute]``: ``[ring4]``'s four shards with the ring's brute
+   variant (``use_blocked=False``), its steps in ring order in one process
+   on 64x64 wavefronts, against the blocked ring's steps under the same
+   rules; both times printed.
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
@@ -2467,6 +2497,356 @@ def profiler_phase(device):
     return counts
 
 
+LBVH_FRAMES = 1  # [lbvh]: timed frames after the warm one (each several seconds)
+ORACLE_RAYS = 4096  # [brute]: rays of a 512x512 wavefront the oracle is held on
+RING_BRUTE_SIZE = 64  # [ring4_brute]: the wavefront's width and height
+BLOCKED_IDS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+LBVH_FIELDS = ("node_min", "node_max", "left", "right", "prim", "prim_valid", "packed", "child",
+               "leaf_rows", "unified", "unified_child")
+
+
+def compare_hits(label, what, rays, got, ref, allowed=0, oracle=None, t_tol=(1e-5, 1e-6),
+                 same_id="prim", min_same=0.97):
+    """``got`` = (hit, blocked) of the LBVH or the oracle against ``ref``'s,
+    under ``tests/test_lbvh.py``'s rules: hit flags equal, t within
+    ``t_tol`` (rtol, atol) where both hit, ``same_id`` ids equal on more
+    than ``min_same`` of those hits (ties at shared edges), blocked flags
+    equal.  ``allowed``: flags that may differ where ``ref`` comes from a
+    list walk (K2/K3, K6/K7), the walks' own tolerance; ``oracle(rays)``,
+    where given, must then agree with ``got`` on every ray that differs.
+    Returns the rays that differ."""
+    import torch
+
+    (hit, blocked), (ref_hit, ref_blocked) = got, ref
+    flag = hit.valid != ref_hit.valid
+    occ = blocked != ref_blocked
+    both = hit.valid & ref_hit.valid
+    t_off = both & ~torch.isclose(hit.t, ref_hit.t, rtol=t_tol[0], atol=t_tol[1])
+    same = (getattr(hit, same_id) == getattr(ref_hit, same_id))[both].float().mean().item()
+    n_flag, n_occ = int(flag.sum()), int(occ.sum())
+    log(f"[{label}] {what}: {int(hit.valid.sum())} hits ({int(ref_hit.valid.sum())}), flags "
+        f"differing {n_flag}, t off {int(t_off.sum())}, same {same_id} {same:.5f}; "
+        f"{int(blocked.sum())} blocked ({int(ref_blocked.sum())}), differing {n_occ}; "
+        f"allowed {allowed}")
+    if n_flag or n_occ:
+        idx = (flag | occ).nonzero()[:, 0]
+        if oracle is not None:
+            o_hit, o_blocked = oracle(rays_take(rays, idx))
+            wrong = (hit.valid[idx] != o_hit.valid) | (blocked[idx] != o_blocked)
+            log(f"[{label}] {what}: the oracle on the {idx.numel()} differing rays agrees "
+                f"with {idx.numel() - int(wrong.sum())} of them")
+            if wrong.any():
+                raise AssertionError(f"{label}: {what}: departs from the oracle")
+    if n_flag > allowed or n_occ > allowed or t_off.any() or not same > min_same:
+        raise AssertionError(f"{label}: {what}: the hits depart")
+
+
+def rays_take(rays, idx):
+    from mcrt_tpu_torch.core.types import Rays
+
+    return Rays(o=rays.o[idx], d=rays.d[idx], tmin=rays.tmin[idx], tmax=rays.tmax[idx],
+                active=rays.active[idx])
+
+
+def oracle_sample(rays):
+    """``ORACLE_RAYS`` rays spread evenly over a wavefront."""
+    import torch
+
+    return rays_take(rays, torch.arange(0, rays.n, rays.n // ORACLE_RAYS,
+                                        device=rays.o.device)[:ORACLE_RAYS])
+
+
+def query_stats(fn):
+    """(ms, result, the LBVH walk's STATS for one synced call of ``fn``)."""
+    from mcrt_tpu_torch.accel import traverse
+
+    traverse.reset_stats()
+    ms, _, out = timed(fn, 1)
+    return ms, out, dict(traverse.STATS)
+
+
+def lbvh_phase(scene, camera, device):
+    """Phase 12, ``[lbvh]``: ``AccelType.LBVH`` on ``sphere_field``
+    (245,764 triangles, leaf size 2).  The launch counters are set to 0
+    before the LBVH's build and read after its frames; K1-K7 must read 0.
+    The build's card time and fixpoint steps; on phase 2's 512x512 primary
+    and bounce wavefronts the closest-hit and occlusion queries' times, loop
+    iterations and host syncs, and ``traversal_iterations``' lockstep count
+    and visits; one warm and ``LBVH_FRAMES`` timed progressive frames
+    through ``Renderer`` at 512x512, depth 8 (ms/spp; the walk's
+    iterations and syncs a frame), and one more frame under the sync
+    counter.  The card's build must equal a CPU build field for field (the
+    CPU tests hold the CPU build to the JAX package's).  Then the
+    wavefronts' hits are held against the blocked
+    queries' (K1-K3, run before the counters were reset) by
+    ``compare_hits``: the list walks may differ from their plain versions
+    on ``walk_allowed`` rays, so the LBVH may too, where the brute-force
+    oracle agrees with the LBVH.  Returns (launch counts, the build)."""
+    import dataclasses
+
+    import torch
+
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.accel import kernels, traverse
+    from mcrt_tpu_torch.accel.blocked import build_blocked, intersect_blocked, occluded_blocked
+    from mcrt_tpu_torch.accel.brute import intersect_brute, occluded_brute
+    from mcrt_tpu_torch.accel.lbvh import build_lbvh
+    from mcrt_tpu_torch.config import AccelType
+    from mcrt_tpu_torch.tools.card import card_line
+    from mcrt_tpu_torch.tools.profile_frame import sync_sites
+    from mcrt_tpu_torch.tools.wavefronts import wavefronts
+
+    label = "lbvh"
+    geom = scene.geometry
+    accel = build_blocked(geom)
+    waves = wavefronts(camera, lambda r: intersect_blocked(geom, accel, r), device)
+    refs = {wf: (intersect_blocked(geom, accel, r), occluded_blocked(geom, accel, r))
+            for wf, r in waves.items()}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    build_ms, _, bvh = timed(lambda: build_lbvh(geom), 1)
+    log(f"[{label}] build on the card: {build_ms:.1f} ms, {bvh.num_leaves} leaves of "
+        f"{bvh.leaf_size}, {bvh.num_nodes} nodes, fixpoint steps {bvh.fit_iterations}, host "
+        f"syncs {bvh.fit_syncs}; card {card_line()}")
+    got = {}
+    for wf, rays in waves.items():
+        c_ms, hit, c_st = query_stats(lambda: traverse.intersect_bvh(geom, bvh, rays))
+        o_ms, blocked, o_st = query_stats(lambda: traverse.occluded_bvh(geom, bvh, rays))
+        iters, visits = traverse.traversal_iterations(bvh, rays)
+        live = visits[rays.active].float()
+        got[wf] = (hit, blocked)
+        log(f"[{label}:{wf}] closest hit {c_ms:.1f} ms, {c_st['iterations']} iterations, "
+            f"{c_st['syncs']} syncs; occlusion {o_ms:.1f} ms, {o_st['iterations']} "
+            f"iterations, {o_st['syncs']} syncs; traversal_iterations: {iters} lockstep "
+            f"iterations, visits a live ray mean {live.mean().item():.2f}, max "
+            f"{int(visits.max())}, total {int(visits.sum())}")
+    cfg = dataclasses.replace(main_cfg(), accel=AccelType.LBVH)
+    t0 = time.perf_counter()
+    renderer = Renderer(scene, camera, cfg, device=device)
+    set_up = time.perf_counter() - t0
+    warm, _, _ = timed(lambda: renderer.step(1), 1)
+    traverse.reset_stats()
+    ms, frame_ms, _ = timed(lambda: renderer.step(1), LBVH_FRAMES)
+    st = {k: v // LBVH_FRAMES for k, v in traverse.STATS.items()}
+    sites = sync_sites(lambda: renderer.step(1))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    img = renderer.display_image()
+    mean = img.mean().item()
+    log(f"[{label}] Renderer {cfg.width}x{cfg.height}, {cfg.integrator.max_depth} bounces, "
+        f"sobol, accel lbvh: set-up "
+        f"(build) {set_up:.2f} s, warm frame {warm:.0f} ms, timed frames (ms) "
+        + ", ".join(f"{t:.0f}" for t in frame_ms) + f": {ms:.1f} ms/spp; a frame: "
+        f"{st['queries']} queries, {st['iterations']} walk iterations, {st['syncs']} walk "
+        f"syncs; synchronizing calls in one frame {sum(sites.values())} ("
+        + ", ".join(f"{s} x{n}" for s, n in sites.most_common(3)) + f"); image mean "
+        f"{mean:.5f}; launches {counts}; card {card_line()}")
+    check_launches(label, counts, (), BLOCKED_IDS)
+    if not bool(torch.isfinite(img).all()) or not mean > 0.0:
+        raise AssertionError(f"{label}: image not finite/positive (mean {mean})")
+    cpu = build_lbvh(geom.to("cpu"))
+    differ = [f for f in LBVH_FIELDS if not torch.equal(getattr(bvh, f).cpu(), getattr(cpu, f))]
+    log(f"[{label}] the card's build against the CPU's, field for field: "
+        f"{'equal' if not differ else 'differs in ' + ', '.join(differ)}")
+    if differ or cpu.fit_iterations != bvh.fit_iterations:
+        raise AssertionError(f"{label}: the card's build departs from the CPU's")
+    for wf, rays in waves.items():
+        compare_hits(f"{label}:{wf}", "against the blocked queries (K1-K3)", rays, got[wf],
+                     refs[wf], walk_allowed(rays.active),
+                     lambda r: (intersect_brute(geom, r), occluded_brute(geom, r)))
+    return counts, bvh
+
+
+def baked_geometry(scene):
+    """The world-space faces of an instanced scene in one soup, as the JAX
+    tests bake them: every face as it is (free geometry and the sources)
+    and, for each instance,
+    its source's faces through ``shapes.to_world`` (its shape id), the
+    shape ids the two-level query reports."""
+    import torch
+
+    g = scene.geometry
+    valid = g.face_valid.nonzero()[:, 0]
+    p = torch.stack(g.face_vertices(valid), dim=1)  # (F, 3, 3)
+    tris, shapes = [p], [g.face_shape[valid]]
+    inst = scene.instances
+    for k in range(inst.num):
+        faces = torch.arange(inst.face_lo[k], inst.face_hi[k], device=p.device)
+        faces = faces[g.face_valid[faces]]
+        tw = scene.shapes.to_world[inst.shape[k]]
+        src = torch.stack(g.face_vertices(faces), dim=1)
+        tris.append(src @ tw[:3, :3].T + tw[:3, 3])
+        shapes.append(torch.full((faces.numel(),), int(inst.shape[k]), dtype=torch.int32,
+                                 device=p.device))
+    pos = torch.cat(tris).reshape(-1, 3)
+    n = pos.shape[0] // 3
+    return g.replace(positions=pos, indices=torch.arange(3 * n, dtype=torch.int32,
+                                                         device=pos.device).reshape(n, 3),
+                     face_shape=torch.cat(shapes),
+                     face_valid=torch.ones((n,), dtype=torch.bool, device=pos.device),
+                     face_attrs=torch.zeros((n, 1), device=pos.device), instanced=False)
+
+
+def brute_phase(scene, camera, bvh, device):
+    """Phase 12, ``[brute]``: the oracle (``AccelType.BRUTE``) on the card.
+    References first, with the launch counters running: K4/K5's queries on
+    ``textured_hall``'s full 512x512 wavefronts, K2/K3's and the LBVH's on
+    ``ORACLE_RAYS`` rays of ``sphere_field``'s, K6/K7's on as many of
+    ``sphere_field_instanced``'s, and one ``AUTO`` frame of ``cornell_box``
+    (512x512, depth 8, K4/K5).  Then, with the counters set to 0 (K1-K7
+    must read 0): the oracle on the same rays (``sphere_field_instanced``'s
+    through its baked world-space faces) and one ``BRUTE`` frame of
+    ``cornell_box`` from the same streams under the sync check.  Held by
+    ``compare_hits``: against K4/K5 and the LBVH exactly, against the list
+    walks within ``walk_allowed`` (K6/K7 at ``tests/test_two_level.py``'s
+    t tolerance of the baked rounding, 2e-4, shape ids on 99%); the frames
+    at the parity share.  Query times printed beside the references'."""
+    import dataclasses
+
+    import torch
+
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.accel import build_intersector, kernels, traverse
+    from mcrt_tpu_torch.accel.brute import intersect_brute, occluded_brute
+    from mcrt_tpu_torch.config import AccelType
+    from mcrt_tpu_torch.scene.builders import cornell_box, sphere_field_instanced, textured_hall
+    from mcrt_tpu_torch.tools.card import card_line
+    from mcrt_tpu_torch.tools.wavefronts import wavefronts
+
+    label = "brute"
+    cases = {}  # name: (geometry the oracle takes, rays, reference, its ms, options)
+    hall, hall_cam = textured_hall(device=device)
+    isect = build_intersector(hall, main_cfg())
+    for wf, rays in wavefronts(hall_cam, lambda r: isect.intersect(hall, r), device).items():
+        ms, _, ref = timed(lambda: (isect.intersect(hall, rays), isect.occluded(hall, rays)),
+                           KERNEL_REPS)
+        cases[f"textured_hall:{wf}"] = (hall.geometry, rays, ref, ms, {}, "K4/K5")
+    isect = build_intersector(scene, main_cfg())
+    for wf, rays in wavefronts(camera, lambda r: isect.intersect(scene, r), device).items():
+        rays = oracle_sample(rays)
+        ms, _, ref = timed(lambda: (isect.intersect(scene, rays), isect.occluded(scene, rays)),
+                           KERNEL_REPS)
+        opts = dict(allowed=walk_allowed(rays.active))
+        cases[f"sphere_field:{wf}"] = (scene.geometry, rays, ref, ms, opts, "K1-K3")
+        ms, _, ref = timed(lambda: (traverse.intersect_bvh(scene.geometry, bvh, rays),
+                                    traverse.occluded_bvh(scene.geometry, bvh, rays)), 1)
+        cases[f"sphere_field:{wf}:lbvh"] = (scene.geometry, rays, ref, ms, {}, "the LBVH")
+    inst, inst_cam = sphere_field_instanced(device=device)
+    isect = build_intersector(inst, main_cfg())
+    baked = baked_geometry(inst)
+    for wf, rays in wavefronts(inst_cam, lambda r: isect.intersect(inst, r), device).items():
+        rays = oracle_sample(rays)
+        ms, _, ref = timed(lambda: (isect.intersect(inst, rays), isect.occluded(inst, rays)),
+                           KERNEL_REPS)
+        opts = dict(allowed=walk_allowed(rays.active), t_tol=(2e-4, 2e-4), same_id="shape",
+                    min_same=0.99)
+        cases[f"sphere_field_instanced:{wf}"] = (baked, rays, ref, ms, opts, "K1+K6/K7")
+    box, box_cam = cornell_box(device=device)
+    cfg = main_cfg(spp=1)
+    auto = Renderer(box, box_cam, cfg, device=device)
+    auto_ms, _, _ = timed(lambda: auto.step(1), 1)
+
+    g, rays = next(iter(cases.values()))[:2]
+    intersect_brute(g, rays), occluded_brute(g, rays)  # warm-up: torch's first launches
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = {}
+    for name, (g, rays, _, _, _, _) in cases.items():
+        ms, _, out = timed(lambda: (intersect_brute(g, rays), occluded_brute(g, rays)), 1)
+        got[name] = (out, ms)
+    r = Renderer(box, box_cam, dataclasses.replace(cfg, accel=AccelType.BRUTE), device=device)
+    times = frames_timed(label, [lambda: r.step(1)])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"[{label}] cornell_box {cfg.width}x{cfg.height}, {cfg.integrator.max_depth} "
+        f"bounces, sobol: brute frame "
+        f"{times[0]:.1f} ms (no sync), AUTO (K4/K5) frame {auto_ms:.1f} ms; launches during "
+        f"the oracle's queries and frame {counts}; card {card_line()}")
+    check_launches(label, counts, (), BLOCKED_IDS)
+    agreement(label, "the BRUTE frame against the AUTO (K4/K5) frame", r.display_image(),
+              auto.display_image())
+    for name, (g, rays, ref, ref_ms, opts, what) in cases.items():
+        out, ms = got[name]
+        log(f"[{label}:{name}] {rays.n} rays, {g.num_faces} faces: the oracle's closest hit "
+            f"and occlusion {ms:.1f} ms, {what}'s {ref_ms:.2f} ms")
+        compare_hits(f"{label}:{name}", f"the oracle against {what}", rays, out, ref, **opts)
+    return counts
+
+
+def ring4_brute_phase(scene, camera, device):
+    """Phase 12, ``[ring4_brute]``: ``[ring4]``'s four shards of
+    ``sphere_field`` with the ring's brute-force variant
+    (``use_blocked=False``, ``ShardedFaces``): its steps over the four
+    shards in ring order, in one process, on a 64x64 primary and bounce
+    wavefront, the rays unsorted as that variant takes them.  The launch
+    counters are set to 0 before the brute steps and read after them (K1-K7
+    must read 0); then the blocked ring's steps on the same rays are the
+    reference, under ``[ring4]``'s rules (flags within the walks'
+    tolerance, t at rtol 1e-5 where both hit).  Both times printed."""
+    import torch
+
+    from mcrt_tpu_torch.accel import build_intersector, kernels
+    from mcrt_tpu_torch.accel.blocked import _coherence_order
+    from mcrt_tpu_torch.parallel.ring import (ShardedFaces, _build_shard_accels, _take,
+                                              _unsort, closest_step, no_hit, occluded_step,
+                                              shard_faces)
+    from mcrt_tpu_torch.tools.card import card_line
+    from mcrt_tpu_torch.tools.wavefronts import wavefronts
+
+    label = "ring4_brute"
+    geom = shard_faces(scene.geometry, RING_SHARDS)
+    fpad = geom.indices.shape[0] // RING_SHARDS
+    blocked_acc = _build_shard_accels(geom, RING_SHARDS, fpad, device=device)
+    brute_acc = ShardedFaces()
+    whole = build_intersector(scene, main_cfg())
+    wfs = wavefronts(camera, lambda r: whole.intersect(scene, r), device, RING_BRUTE_SIZE,
+                     RING_BRUTE_SIZE)
+
+    def ring(acc, rays, order):
+        rays_s, best = _take(rays, order), no_hit(rays.n, device)
+        occ_s = rays_s
+        blocked = torch.zeros((rays.n,), dtype=torch.bool, device=device)
+        for s in range(RING_SHARDS):
+            best = closest_step(geom, acc, s, fpad, rays_s, best)
+            occ_s, blocked = occluded_step(geom, acc, s, fpad, occ_s, blocked)
+        out = torch.empty_like(blocked)
+        out[order] = blocked
+        return _unsort(best, order), out
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = {}
+    for wf, rays in wfs.items():
+        ms, _, out = timed(lambda: ring(brute_acc, rays, torch.arange(rays.n, device=device)),
+                           1)
+        got[wf] = (out, ms)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"[{label}] {RING_SHARDS} shards of {fpad} faces, {RING_BRUTE_SIZE}x{RING_BRUTE_SIZE} "
+        f"wavefronts; launches during the brute steps {counts}")
+    check_launches(label, counts, (), BLOCKED_IDS)
+    for wf, rays in wfs.items():
+        out, ms = got[wf]
+        order = _coherence_order(rays, blocked_acc.bounds)
+        ref_ms, _, ref = timed(lambda: ring(blocked_acc, rays, order), KERNEL_REPS)
+        log(f"[{label}:{wf}] the brute ring's four steps (closest hit and occlusion) {ms:.1f} "
+            f"ms; the blocked ring's {ref_ms:.2f} ms; card {card_line()}")
+        compare_hits(f"{label}:{wf}", "against the blocked ring", rays, out, ref,
+                     walk_allowed(rays.active))
+    return counts
+
+
+def accel_phases(scene, camera, device):
+    """Phase 12: ``[lbvh]``, ``[brute]`` and ``[ring4_brute]``, each with
+    the launch counters around the LBVH's or the oracle's work; returns
+    each phase's launch counts."""
+    counts = {}
+    counts["lbvh"], bvh = lbvh_phase(scene, camera, device)
+    counts["brute"] = brute_phase(scene, camera, bvh, device)
+    counts["ring4_brute"] = ring4_brute_phase(scene, camera, device)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2536,6 +2916,8 @@ def main() -> int:
     phase_counts["viewer"], phase_counts["viewer_glass_gallery"] = viewer_phase(device)
     phase_counts["checkpoint"] = checkpoint_phase(device)
     phase_counts["profiler"] = profiler_phase(device)
+    with torch.no_grad():
+        phase_counts.update(accel_phases(scene, camera, device))
     baked, inst = paths["main"][3], paths["instanced"][3]
     log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
         f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")

@@ -1,7 +1,7 @@
 """Acceleration-structure registry (counterpart of ``mcrt_tpu/accel/__init__.py``).
 
 ``build_intersector`` builds the accel for a scene and binds the
-(closest-hit, any-hit) query pair.  The port has two engines:
+(closest-hit, any-hit) query pair.  The port has four engines:
 
 - the blocked intersector, under ``AccelType.AUTO`` and ``BLOCKED``: scenes
   of at most ``blocked.DENSE_BLOCKS`` blocks take its dense path (kernels
@@ -9,13 +9,26 @@
 - the two-level intersector (K1 over pair boxes, then K6/K7), which
   instanced scenes take under ``AUTO`` and ``TWO_LEVEL``; a scene without
   instances under ``TWO_LEVEL`` renders as one free BLAS under an identity
-  instance.
+  instance;
+- the LBVH under ``LBVH``: a Morton/Karras tree built on the scene's
+  device (``lbvh.py``) and walked by a lockstep stack loop in PyTorch
+  (``traverse.py``);
+- the brute-force oracle under ``BRUTE`` (``brute.py``): every ray against
+  every triangle, with no accel (``accel=None``).
 
-On a CUDA device the queries launch the kernels; on the CPU they run the
-kernels' plain PyTorch versions (the choice is made by the tensors'
-device).  ``parallel/ring.py: build_sharded_scene`` binds a third
-``Intersector``, the ray ring over face shards, whose ``accel`` is the
-rank's ``ShardedBlockedAccel``; each ring step runs the blocked queries.
+``AUTO`` takes the blocked intersector on every device.  The JAX
+package's ``AUTO`` does so on the TPU, the card's counterpart, and takes
+the oracle (at most 4,096 faces) or the LBVH elsewhere; the port keeps the
+blocked path on the CPU too, where its tests hold the kernels' plain
+versions.
+
+On a CUDA device the blocked and two-level queries launch the kernels; on
+the CPU they run the kernels' plain PyTorch versions (the choice is made
+by the tensors' device).  The LBVH and the oracle are plain PyTorch on
+every device.  ``parallel/ring.py: build_sharded_scene`` binds a fifth
+``Intersector``, the ray ring over face shards: each ring step runs the
+blocked queries on the rank's ``ShardedBlockedAccel``, or the oracle on
+the rank's faces (``use_blocked=False``).
 """
 from __future__ import annotations
 
@@ -65,13 +78,6 @@ def two_level_intersector(acc) -> Intersector:
     )
 
 
-_NOT_PORTED = {
-    AccelType.LBVH: "Queue 1, LBVH and the brute oracle: LBVH is retired from the port",
-    AccelType.BRUTE: "Queue 1, LBVH and the brute oracle: the oracle stays in the JAX "
-                     "package",
-}
-
-
 def build_intersector(scene: Scene, cfg: RenderConfig) -> Intersector:
     """Build the accel for ``scene`` and bind its query closures."""
     if scene.instances is not None:
@@ -91,10 +97,19 @@ def build_intersector(scene: Scene, cfg: RenderConfig) -> Intersector:
 
         return two_level_intersector(build_two_level_scene(
             scene.geometry, scene.shapes.to_world, instances, cfg.bvh))
-    if cfg.accel in _NOT_PORTED:
-        raise NotImplementedError(
-            f"accel={cfg.accel.value!r} is not ported yet (ROADMAP: "
-            f"{_NOT_PORTED[cfg.accel]}); use AccelType.AUTO or BLOCKED")
+    if cfg.accel == AccelType.BRUTE:
+        from .brute import intersect_brute, occluded_brute
+
+        return Intersector(intersect=lambda s, r: intersect_brute(s.geometry, r),
+                           occluded=lambda s, r: occluded_brute(s.geometry, r), accel=None)
+    if cfg.accel == AccelType.LBVH:
+        from .lbvh import build_lbvh
+        from .traverse import intersect_bvh, occluded_bvh
+
+        bvh = build_lbvh(scene.geometry, cfg.bvh)
+        return Intersector(
+            intersect=lambda s, r: intersect_bvh(s.geometry, bvh, r, cfg.bvh),
+            occluded=lambda s, r: occluded_bvh(s.geometry, bvh, r, cfg.bvh), accel=bvh)
     if cfg.accel not in (AccelType.AUTO, AccelType.BLOCKED):
         raise ValueError(f"unknown accel {cfg.accel}")
     from .blocked import build_blocked

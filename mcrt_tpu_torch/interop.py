@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .accel.blocked import BlockedAccel
+from .accel.lbvh import LBVH
 from .accel.two_level import TwoLevelAccel
 from .camera.pinhole import PinholeCamera
 from .core.types import default_device
@@ -132,3 +133,25 @@ def two_level_accel_from_numpy(blas: BlockedAccel, world_to_object, tw_rows, sha
         pair_aabb=t(pair_aabb, torch.float32), pair_chunk=t(pair_chunk, torch.float32),
         pair_code=t(pair_code, torch.int32), bounds=t(bounds, torch.float32),
         num_instances=int(num_instances), num_pairs=int(num_pairs))
+
+
+def lbvh_from_numpy(node_min, node_max, left, right, prim, prim_valid, packed_t, children,
+                    leaf_t, unified_t=None, unified_ci=None, leaf_size: int = 2,
+                    device=None) -> LBVH:
+    """A port ``LBVH`` from the reference's LBVH arrays, its component-major
+    traversal tables stored row-major as the port keeps them."""
+    device = default_device(device)
+
+    def t(a, dtype, rows=False):
+        a = np.array(a)
+        return torch.as_tensor(np.ascontiguousarray(a.T) if rows else a, dtype=dtype,
+                               device=device)
+
+    return LBVH(
+        node_min=t(node_min, torch.float32), node_max=t(node_max, torch.float32),
+        left=t(left, torch.int32), right=t(right, torch.int32), prim=t(prim, torch.int32),
+        prim_valid=t(prim_valid, torch.bool), packed=t(packed_t, torch.float32, True),
+        child=t(children, torch.int32, True), leaf_rows=t(leaf_t, torch.float32, True),
+        unified=None if unified_t is None else t(unified_t, torch.float32, True),
+        unified_child=None if unified_ci is None else t(unified_ci, torch.int32, True),
+        leaf_size=int(leaf_size))

@@ -30,9 +30,9 @@ from .mesh import RAYS_AXIS, SPP_AXIS, axis_size, check_mesh, rays_share, spp_sh
 
 
 def _ring_owns_rays(intersector) -> bool:
-    from .ring import ShardedBlockedAccel
+    from .ring import ShardedBlockedAccel, ShardedFaces
 
-    return isinstance(intersector.accel, ShardedBlockedAccel)
+    return isinstance(intersector.accel, (ShardedBlockedAccel, ShardedFaces))
 
 
 def _sliced(mesh, intersector) -> bool:

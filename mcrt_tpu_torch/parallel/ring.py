@@ -5,8 +5,10 @@ The per-face tables are split into one Morton-contiguous shard per rank
 of the mesh's ``rays`` axis, and rays travel to the data: each ring step
 intersects the resident block of rays against the local shard (the
 blocked queries, K1-K3 on a list-path shard, K4/K5 on a shard of at most
-8 blocks), merges into the running closest hit, then sends (rays, best
-hit) to the next rank and receives the previous rank's.  After
+8 blocks; or, with ``use_blocked=False``, the brute-force oracle over the
+shard's faces, whose accel is ``ShardedFaces``), merges into the running
+closest hit, then sends (rays, best hit) to the next rank and receives
+the previous rank's.  After
 ``n_shards`` steps every block of rays has met every shard and is home.
 Vertex and face tables stay whole on every rank for shading; only the
 accel is split, and each rank holds its own shard's.
@@ -14,7 +16,8 @@ accel is split, and each rank holds its own shard's.
 The JAX package writes this as a ``shard_map`` region that takes global
 rays and gives global hits; the port keeps those semantics with explicit
 collectives: each rank takes its rays-axis slice of the rays it is given,
-coherence-sorts it once with the global bounds, runs the ring, unsorts,
+coherence-sorts it once with the global bounds (the blocked variant
+only), runs the ring, unsorts,
 and ``all_gather``s the hits over the rays group.  The exchange packs
 each block into one float32 and one int32 tensor (NCCL has no bool) and
 posts the send and the receive together (``dist.batch_isend_irecv``); a
@@ -29,15 +32,13 @@ import torch
 import torch.distributed as dist
 
 from ..accel import Intersector
+from ..accel.brute import intersect_brute, occluded_brute
 from ..accel.blocked import (BLOCK, BlockedAccel, _coherence_order, _morton_u32,
                              _resolve_uv, build_blocked, intersect_blocked,
                              occluded_blocked)
 from ..core.types import F32_MAX, Hit, Rays, TensorRecord
 from ..scene.scene import FA_LIGHT, FA_MAT, Geometry, take_clip
 from .mesh import RAYS_AXIS, axis_size, check_mesh
-
-_NO_BRUTE = ("the ring's brute-force oracle is not ported (ROADMAP, Queue 1, LBVH and the "
-             "brute oracle): use use_blocked=True")
 
 
 def shard_faces(geom: Geometry, n_shards: int, return_face_map: bool = False):
@@ -123,6 +124,12 @@ class ShardedBlockedAccel(TensorRecord):
                             slot_prim=self.slot_prim[i:i + 1], first=s)
 
 
+@dataclass
+class ShardedFaces(TensorRecord):
+    """The accel of the ring's brute-force variant: no tables.  Each step
+    tests every face of its shard (``accel/brute.py``)."""
+
+
 def _build_shard_accels(geom: Geometry, n_shards: int, fpad: int, cfg=None,
                         device=None) -> ShardedBlockedAccel:
     """Host build: one blocked accel per contiguous face shard, padded to
@@ -182,20 +189,28 @@ def no_hit(n: int, device) -> Hit:
                valid=torch.zeros((n,), dtype=torch.bool, device=device))
 
 
-def closest_step(geom: Geometry, accel: ShardedBlockedAccel, s: int, fpad: int,
-                 rays: Rays, best: Hit) -> Hit:
+def closest_step(geom: Geometry, accel: ShardedBlockedAccel | ShardedFaces, s: int,
+                 fpad: int, rays: Rays, best: Hit) -> Hit:
     """One ring step of the closest-hit query: the (sorted) rays against
     shard ``s``, merged into ``best`` with prim ids rebased to the sharded
     face tables."""
-    h = intersect_blocked(_shard_rows(geom, s, fpad), accel.shard(s), rays, sort=False)
+    sub = _shard_rows(geom, s, fpad)
+    if isinstance(accel, ShardedFaces):
+        h = intersect_brute(sub, rays)
+    else:
+        h = intersect_blocked(sub, accel.shard(s), rays, sort=False)
     return _merge_best(h, best, s * fpad)
 
 
-def occluded_step(geom: Geometry, accel: ShardedBlockedAccel, s: int, fpad: int,
-                  rays: Rays, blocked: torch.Tensor):
+def occluded_step(geom: Geometry, accel: ShardedBlockedAccel | ShardedFaces, s: int,
+                  fpad: int, rays: Rays, blocked: torch.Tensor):
     """One ring step of the any-hit query: (rays with the lanes now
     blocked deactivated, blocked so far)."""
-    b = occluded_blocked(_shard_rows(geom, s, fpad), accel.shard(s), rays, sort=False)
+    sub = _shard_rows(geom, s, fpad)
+    if isinstance(accel, ShardedFaces):
+        b = occluded_brute(sub, rays)
+    else:
+        b = occluded_blocked(sub, accel.shard(s), rays, sort=False)
     return rays.replace(active=rays.active & ~b), blocked | b
 
 
@@ -304,20 +319,27 @@ class _Ring:
         return torch.cat(pieces)
 
 
-def make_ring_intersector(mesh, n_shards: int, fpad: int, accel: ShardedBlockedAccel):
+def make_ring_intersector(mesh, n_shards: int, fpad: int,
+                          accel: ShardedBlockedAccel | ShardedFaces):
     """(intersect, occluded): ``(geom, rays) -> Hit`` and ``-> (N,) bool``
     over the sharded geometry ``geom``, running the ray ring over the
     mesh's rays axis with this rank's shard of ``accel``.  Every rank of the
     axis calls them with the same global rays and gets the global
-    result."""
+    result.  The brute variant (``ShardedFaces``) takes the rays unsorted,
+    as the JAX package's does."""
     ring = _Ring(mesh)
     if ring.size != n_shards:
         raise ValueError(f"{n_shards} shards on a rays axis of {ring.size} ranks")
     me = ring.me
 
+    def sort_order(local: Rays) -> torch.Tensor:
+        if isinstance(accel, ShardedFaces):
+            return torch.arange(local.n, device=local.o.device)
+        return _coherence_order(local, accel.bounds)
+
     def ring_intersect(geom: Geometry, rays: Rays) -> Hit:
         local = ring.local(rays)
-        order = _coherence_order(local, accel.bounds)
+        order = sort_order(local)
         rays_s = _take(local, order)
         best = no_hit(local.n, local.o.device)
         # as many rotations as shards: every block of rays comes home
@@ -331,7 +353,7 @@ def make_ring_intersector(mesh, n_shards: int, fpad: int, accel: ShardedBlockedA
 
     def ring_occluded(geom: Geometry, rays: Rays) -> torch.Tensor:
         local = ring.local(rays)
-        order = _coherence_order(local, accel.bounds)
+        order = sort_order(local)
         rays_s = _take(local, order)
         blocked = torch.zeros((local.n,), dtype=torch.bool, device=local.o.device)
         for _ in range(ring.size):
@@ -349,16 +371,15 @@ def build_sharded_scene(scene, mesh, use_blocked: bool = True):
     """Shard a scene's face tables over the mesh's rays axis; returns
     (sharded scene, ring intersector).  Every rank of the mesh calls it on
     the same scene; each keeps its own shard's accel on the scene's device
-    and the whole face and vertex tables for shading.  Mesh lights'
-    ``tri_index`` is remapped to the sharded face order."""
+    and the whole face and vertex tables for shading.  ``use_blocked=False``
+    runs the brute-force oracle over each shard's faces instead.  Mesh
+    lights' ``tri_index`` is remapped to the sharded face order."""
     check_mesh(mesh)
     if scene.instances is not None:
         raise ValueError(
             "scene sharding does not support instanced scenes yet: shard "
             "faces reference world-space geometry; bake instances "
             "(SceneBuffers.add_instance) before sharding")
-    if not use_blocked:
-        raise NotImplementedError(_NO_BRUTE)
     n_shards = axis_size(mesh, RAYS_AXIS)
     geom, face_map = shard_faces(scene.geometry, n_shards, return_face_map=True)
     fpad = geom.indices.shape[0] // n_shards
@@ -368,9 +389,12 @@ def build_sharded_scene(scene, mesh, use_blocked: bool = True):
         remapped = np.where(old >= 0, face_map[np.maximum(old, 0)], -1).astype(np.int32)
         lights = lights.replace(tri_index=torch.from_numpy(remapped).to(lights.tri_index.device))
     scene = scene.replace(geometry=geom, lights=lights)
-    me = mesh.get_local_rank(RAYS_AXIS)
-    accel = _build_shard_accels(geom, n_shards, fpad, device="cpu").held(me).to(
-        geom.positions.device)
+    if use_blocked:
+        me = mesh.get_local_rank(RAYS_AXIS)
+        accel = _build_shard_accels(geom, n_shards, fpad, device="cpu").held(me).to(
+            geom.positions.device)
+    else:
+        accel = ShardedFaces()
     intersect, occluded = make_ring_intersector(mesh, n_shards, fpad, accel)
     return scene, Intersector(intersect=lambda s, r: intersect(s.geometry, r),
                               occluded=lambda s, r: occluded(s.geometry, r),

@@ -20,9 +20,12 @@ against finite differences.
   ``|port - jax| <= RTOL * |jax| + ATOL * max|jax|`` (``TOL``).
 - The port's versions of the five gradient cases of ``tests/test_diff.py``
   against central differences of the port's own render, at that file's
-  tolerances; its LBVH case becomes a blocked case on ``glass_gallery`` (31
-  blocks), so the visit-list queries (K1-K3's plain versions) are
-  differentiated through.
+  tolerances, its LBVH case replaced here by a case on ``glass_gallery``
+  (31 blocks), so that the visit-list queries (K1-K3's plain versions) are
+  differentiated through.  The LBVH case itself is in
+  ``tests/test_torch_lbvh.py``, and ``tests/test_torch_brute.py`` holds the
+  port's gradients under ``AccelType.BRUTE`` against ``jax.grad`` under the
+  JAX ``BRUTE``.
 - ``make_train_step``, the detached BSDF sample, the float texels and the
   queries' missing graph.  BDPT's gradients are held in
   ``tests/test_torch_bdpt_grad.py``.
@@ -48,7 +51,7 @@ from mcrt_tpu_torch.accel import two_level as ttl
 from mcrt_tpu_torch.bsdf import uber
 from mcrt_tpu_torch.bsdf.materials import fetch_bsdf
 from mcrt_tpu_torch.camera.pinhole import PinholeCamera
-from mcrt_tpu_torch.config import IntegratorConfig, RenderConfig
+from mcrt_tpu_torch.config import AccelType, IntegratorConfig, RenderConfig
 from mcrt_tpu_torch.core import math as m
 from mcrt_tpu_torch.core.types import Rays
 from mcrt_tpu_torch.diff import estimators as E
@@ -94,14 +97,16 @@ def _tie_scene():
     return scene, camera
 
 
-def grads_both(jscene, jcam, view, size, spp, depth, accel=JAccelType.BRUTE):
+def grads_both(jscene, jcam, view, size, spp, depth, accel=JAccelType.BRUTE,
+               port_accel=AccelType.AUTO):
     """(share of agreeing pixels, {field: (port grad, JAX grad)}) of the
-    image sum over the agreeing pixels, both packages on the same tables."""
+    image sum over the agreeing pixels, both packages on the same tables;
+    the JAX side under ``accel``, the port under ``port_accel``."""
     jview, tview = getattr(JE, view)(), getattr(E, view)()
     tscene, tcam = port_scene(jscene), _camera(jcam)
     jcfg = JRenderConfig(width=size, height=size, spp=spp, accel=accel,
                          integrator=JIntegratorConfig(max_depth=depth))
-    cfg = RenderConfig(width=size, height=size, spp=spp,
+    cfg = RenderConfig(width=size, height=size, spp=spp, accel=port_accel,
                        integrator=IntegratorConfig(max_depth=depth))
     jisect, tisect = j_build_intersector(jscene, jcfg), build_intersector(tscene, cfg)
     frames = np.arange(spp, dtype=np.int32)

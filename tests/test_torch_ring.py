@@ -19,9 +19,14 @@ its brute-force oracle, as ``tests/test_ring.py`` tests the JAX ring.
   ``make_train_step`` through the ring on a (1, n) mesh against the
   unsharded port; the gradient of the ring's barycentrics with respect
   to the rays against the replicated intersector's.
-- Refusals: an instanced scene (``ValueError``), ``use_blocked=False``
-  (the brute oracle is not ported), and rays that do not divide over the
-  rays axis (``ValueError``).
+- The ring's brute-force variant (``use_blocked=False``) on
+  ``cornell_box`` at world sizes 2 and 4: its hits and occlusion against
+  the JAX brute oracle and the blocked ring's, its PT and BDPT samples
+  against the JAX ring's brute variant at the parity share and against the
+  port's replicated render.
+- Refusals: an instanced scene (``ValueError``) and rays that do not
+  divide over the rays axis (``ValueError``); ``use_blocked=False`` is no
+  longer refused.
 
 The JAX package is imported inside the helpers that use it: the ranks
 import this module and need only the port.
@@ -111,9 +116,28 @@ def rank_ring(rank, world, inputs, out_dir):
                                               inputs[name]["camera_rays"])
     iscene, _ = port_of(inputs["instanced_boxes"])
     out["instanced"] = _raises(ValueError, lambda: build_sharded_scene(iscene, mesh))
-    out["brute"] = _raises(NotImplementedError, lambda: build_sharded_scene(
-        port_of(inputs["cornell_box"]["leaves"])[0], mesh, use_blocked=False))
+    out["brute"] = _brute_ring_case(inputs["cornell_box"], mesh)
     torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def _brute_ring_case(inputs, mesh):
+    """The ring's brute-force variant (``use_blocked=False``) on
+    ``cornell_box``: its hits, occlusion and PT and BDPT samples."""
+    from mcrt_tpu_torch.parallel.ring import ShardedFaces, build_sharded_scene
+
+    scene, cam = port_of(inputs["leaves"])
+    sscene, ring = build_sharded_scene(scene, mesh, use_blocked=False)
+    with torch.no_grad():
+        h = ring.intersect(sscene, _rays(inputs["camera_rays"]))
+        p0, p1, p2 = sscene.geometry.face_vertices(h.prim.clamp_min(0))
+        w = 1.0 - h.u - h.v
+        res = {"point": (w[:, None] * p0 + h.u[:, None] * p1 + h.v[:, None] * p2).numpy(),
+               "hit": {k: getattr(h, k).numpy() for k in ("t", "prim", "u", "v", "valid")},
+               "occluded": ring.occluded(sscene, _rays(inputs["occ_rays"])).numpy(),
+               "accel": type(ring.accel) is ShardedFaces}
+        for integ in ("PATH", "BDPT"):
+            res[integ] = _render(sscene, cam, integ, ring)
+    return res
 
 
 def _jax_scene(name):
@@ -356,9 +380,50 @@ def test_ring_hit_carries_the_rays_gradient(ring_run, world, name):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_ring_refusals(ring_run, world):
+    """An instanced scene is refused; ``use_blocked=False`` is not: it
+    builds the brute-force ring."""
     for r in ring_run[1][world]:
         assert r["instanced"] and "instanced" in r["instanced"]
-        assert r["brute"] and "brute" in r["brute"] and "Queue 1" in r["brute"]
+        assert r["brute"]["accel"]
+
+
+def _check_hits(h, ref, o):
+    np.testing.assert_array_equal(h["valid"], ref["valid"])
+    np.testing.assert_allclose(np.where(h["valid"], h["t"], 0.0),
+                               np.where(ref["valid"], ref["t"], 0.0), rtol=1e-5, atol=1e-6)
+    assert h["valid"].sum() > 0
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_brute_ring_matches_oracle_and_blocked_ring(ring_run, world):
+    """The brute ring's closest hit and occlusion against the JAX brute
+    oracle and the blocked ring's, under ``test_ring_closest_hit_matches_
+    oracle``'s rules (the hit point on the ray at t)."""
+    inputs = ring_run[0]["cornell_box"]
+    o = inputs["camera_rays"][0]
+    for r in ring_run[1][world]:
+        b = r["brute"]
+        _check_hits(b["hit"], inputs["oracle_hit"], o)
+        _check_hits(b["hit"], r["cornell_box"]["hit"], o)
+        t_re = np.linalg.norm(b["point"] - o, axis=-1)
+        assert (~b["hit"]["valid"] | np.isclose(t_re, b["hit"]["t"], rtol=1e-3, atol=1e-3)).all()
+        np.testing.assert_array_equal(b["occluded"], inputs["oracle_occluded"])
+        np.testing.assert_array_equal(b["occluded"], r["cornell_box"]["occluded"])
+
+
+@pytest.mark.parametrize("integrator", ["PATH", "BDPT"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_brute_ring_render_matches_jax_ring(ring_run, replicated, world, integrator):
+    """The brute ring's samples against the JAX ring's brute variant at the
+    parity share, and against the port's replicated render as the blocked
+    ring is held."""
+    jimg = ring_run[2][world, integrator]
+    for r in ring_run[1][world]:
+        img = r["brute"][integrator]
+        share = np.isclose(img, jimg, rtol=1e-3, atol=1e-4).all(-1).mean()
+        assert share >= 0.99, share
+        np.testing.assert_allclose(img, replicated["cornell_box"][integrator], rtol=1e-4,
+                                   atol=1e-5)
 
 
 def test_list_path_shards(ring_run):

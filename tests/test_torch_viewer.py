@@ -148,6 +148,32 @@ def test_stats_endpoint(viewer):
     assert st["device_bytes_in_use"] == 0 and st["device_bytes_limit"] == 0  # the CPU
 
 
+@pytest.mark.parametrize("accel", ["BRUTE", "LBVH"])
+def test_stats_under_brute_and_lbvh(accel):
+    """The stats endpoint under the accels with no tables (``BRUTE``: its
+    accel is None, 0 bytes) and with the LBVH's tables (their bytes)."""
+    from mcrt_tpu_torch.config import AccelType
+    from mcrt_tpu_torch.runtime.platform import nbytes
+
+    scene, camera = builders.cornell_box(device="cpu")
+    cfg = RenderConfig(width=SIZE, height=SIZE, spp=64, samples_per_pass=1,
+                       accel=AccelType[accel], integrator=IntegratorConfig(max_depth=2))
+    v = ProgressiveViewer(Renderer(scene, camera, cfg, device="cpu"), port=0)
+    try:
+        _serve(v, 2)
+        code, body = _get(v, "/api/stats")
+        st = json.loads(body)
+        accel_obj = v.renderer.intersector.accel
+        assert code == 200 and st["spp"] == 2 and st["samples_per_sec"] > 0.0
+        assert st["accel_bytes"] == nbytes(accel_obj)
+        if accel == "BRUTE":
+            assert accel_obj is None and st["accel_bytes"] == 0
+        else:
+            assert st["accel_bytes"] >= accel_obj.unified.numel() * 4 > 0
+    finally:
+        v.stop()
+
+
 def test_scene_switcher(viewer):
     code, body = _get(viewer, "/api/scenes")
     assert code == 200 and "cornell_box" in json.loads(body)["scenes"]
