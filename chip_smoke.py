@@ -264,6 +264,32 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    variant (``use_blocked=False``), its steps in ring order in one process
    on 64x64 wavefronts, against the blocked ring's steps under the same
    rules; both times printed.
+13. The three ``bunny.obj`` scenes, each phase with the launch counters
+   set to 0 just before and read just after.  ``bunny.obj`` is not in the
+   repository, so the phase writes a stand-in into a temporary directory
+   (``write_standin_obj``: an icosphere of 5,120 triangles moved along its
+   normals by low-frequency sinusoids), once with ``vn``/``vt`` and once
+   with positions alone (the loader then computes the normals, which must
+   match the other file's), and passes it as ``bunny_path``; at the
+   builders' default grids that is their full size.  ``[bunny_field]``
+   (250,882 triangles; the file without normals) and ``[heavy_gallery]``
+   (184,324; all four light types, a textured and normal-mapped floor,
+   mirror and glass) as phase 4's main paths, 512x512, 8 bounces, K1-K3
+   and none of K4-K7, each with one more frame holding every K1 launch
+   (keys equal) and one more every K2/K3 launch (the walks' tolerance);
+   ``[heavy_gallery_sbvh]``, whose image must lie within
+   ``tests/test_heavy_golden.py``'s 0.02 mean-relative of the SAH image
+   and agree with it on ``PARITY_MIN_SHARE`` of pixels; ``[heavy_gallery_bdpt]`` (BDPT, 128x128,
+   depth 3, as ``[bdpt_128]``); ``[bunny_field_instanced]`` (one BLAS in 48
+   instances; K1, K6, K7 and none of K2-K5; every K1 and K6/K7 launch of
+   one more frame held); ``[loop_oracle]``: the stand-in in
+   ``tests/test_two_level.py``'s 100-instance grid, ``LOOP_RAYS`` =
+   262,144 random rays (numpy seed 7) through K6/K7 and through the
+   per-instance loop of flat queries (``intersect_two_level_loop``, K2 and
+   K3 once an instance) under that test's criteria (valid flags equal, t
+   within rtol 1e-5 / atol 1e-5, occluded flags equal), then the same rays
+   through ``bunny_field_instanced``'s accel unsorted against sorted,
+   alike; and ``heavy_gallery`` at grid 2 card against CPU as phase 3.
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
@@ -291,7 +317,7 @@ The second-to-last stdout line is the per-kernel JSON record (``ms``,
 of seven of a main path's eight bounces, K8's float32 chain's and K9's at
 k = 128; ``launches`` are the counts of the main path that runs the
 kernel, ``vpu_bench.main()`` for K8/K9, and ``launches_by_path`` every
-phase's count of phases 4 to 11; each row's ``variants`` map holds
+phase's count of phases 4 to 13; each row's ``variants`` map holds
 every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by`` and ``library_ms``, and for K8 (float32, bfloat16) and K9
 (k=8, k=128) also ``issue_floor_ms`` and ``sm_mhz``), the last one
@@ -797,7 +823,11 @@ def two_level_kernels(res, device):
                    floor_ops=least * visit + staged * OPS_STAGE)
 
 
-def parity_phase(name: str, sampler: str = "SOBOL", integrator: str = "PATH"):
+def parity_phase(name: str, sampler: str = "SOBOL", integrator: str = "PATH",
+                 builder_kw: dict | None = None):
+    """``name``'s builder (with ``builder_kw``) rendered at 64x64, 1 spp,
+    depth 3 on the card and on the CPU: at least ``PARITY_MIN_SHARE`` of
+    pixels must agree."""
     import torch
 
     from mcrt_tpu_torch import Renderer
@@ -812,7 +842,7 @@ def parity_phase(name: str, sampler: str = "SOBOL", integrator: str = "PATH"):
     tag = "bdpt_parity" if integrator == "BDPT" else "parity"
     images = {}
     for dev in ("cuda", "cpu"):
-        scene, camera = getattr(builders, name)(device=dev)
+        scene, camera = getattr(builders, name)(device=dev, **(builder_kw or {}))
         t0 = time.perf_counter()
         images[dev] = Renderer(scene, camera, cfg, device=dev).render().cpu()
         if dev == "cuda":
@@ -1034,8 +1064,9 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phases=(
     renderer = Renderer(scene, camera, cfg, device=device)
     accel = renderer.intersector.accel
     blocks = getattr(accel, "blas", accel)
+    pairs = f", {accel.num_pairs} (instance, block) pairs" if blocks is not accel else ""
     log(f"[{label}] accel {type(accel).__name__} build {time.perf_counter() - t0:.2f} s, "
-        f"builder {blocks.builder}, {blocks.num_blocks} blocks, "
+        f"builder {blocks.builder}, {blocks.num_blocks} blocks{pairs}, "
         f"{int((blocks.slot_prim >= 0).sum())} references to "
         f"{int(scene.geometry.face_valid.sum())} triangles")
     if blocks.builder != builder.lower():
@@ -2847,6 +2878,225 @@ def accel_phases(scene, camera, device):
     return counts
 
 
+STANDIN_SUBDIV = 4  # the stand-in mesh: an icosphere of 20 * 4**4 = 5,120 triangles
+STANDIN_TRIANGLES = {"bunny_field": 49 * 5120 + 2, "heavy_gallery": 36 * 5120 + 4}
+LOOP_GRID = 10  # [loop_oracle]: instances a side, tests/test_two_level.py's 100-instance grid
+LOOP_RAYS = 262144  # [loop_oracle]: random rays made from a numpy seed
+LOOP_T_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_two_level.py's bound on t
+HEAVY_REL = 0.02  # tests/test_heavy_golden.py's bound on the mean-relative difference
+PARITY_GRID = 2  # [heavy_gallery]'s card-against-CPU parity: bunnies a side
+
+
+def write_standin_obj(path, subdiv=STANDIN_SUBDIV, attributes=True):
+    """Writes a closed, non-convex mesh to ``path`` as an OBJ file, in the
+    place of the Stanford bunny (``bunny.obj``, which is not in the
+    repository): an icosphere of ``20 * 4**subdiv`` triangles, each vertex
+    moved along its direction by a sum of low-frequency sinusoids, so the
+    surface has hollows and bumps.  With ``attributes``, each vertex also
+    gets its spherical uv (``vt``) and its area-weighted normal (``vn``);
+    without, faces name positions alone, as the bunny's file does, and a
+    loader computes the normals.  The same arguments write the same bytes."""
+    import numpy as np
+
+    from mcrt_tpu_torch.scene.builders import icosphere
+
+    unit, faces, _ = icosphere((0.0, 0.0, 0.0), 1.0, subdiv=subdiv)
+    d = unit.astype(np.float64)
+    x, y, z = d.T
+    r = (1.0 + 0.18 * np.sin(3.0 * x + 1.0) * np.cos(2.0 * y) + 0.12 * np.sin(4.0 * z - 0.5)
+         + 0.08 * np.cos(5.0 * y + 2.0 * x))
+    pos = d * r[:, None]
+    lines = [f"# stand-in mesh: icosphere subdiv {subdiv}, radially displaced\n"]
+    lines += [f"v {a:.7f} {b:.7f} {c:.7f}\n" for a, b, c in pos]
+    if attributes:
+        u = 0.5 + np.arctan2(z, x) / (2.0 * np.pi)
+        v = 0.5 + np.arcsin(np.clip(y, -1.0, 1.0)) / np.pi
+        p = pos[faces]
+        fn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        n = np.zeros_like(pos)
+        for k in range(3):
+            np.add.at(n, faces[:, k], fn)
+        n /= np.linalg.norm(n, axis=1, keepdims=True)
+        lines += [f"vt {a:.7f} {b:.7f}\n" for a, b in zip(u, v)]
+        lines += [f"vn {a:.7f} {b:.7f} {c:.7f}\n" for a, b, c in n]
+        lines += ["f " + " ".join(f"{i + 1}/{i + 1}/{i + 1}" for i in f) + "\n" for f in faces]
+    else:
+        lines += [f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces]
+    with open(path, "w") as fh:
+        fh.writelines(lines)
+    return path
+
+
+def mean_relative(a, ref) -> float:
+    """``tests/test_heavy_golden.py``'s measure: mean |a - ref| over the
+    mean of ``ref``."""
+    return ((a - ref).abs().mean() / max(ref.mean().item(), 1e-6)).item()
+
+
+def check_queries(label, what, hit, blocked, ref_hit, ref_blocked):
+    """``tests/test_two_level.py``'s criteria: valid flags equal, t within
+    ``LOOP_T_TOL`` on the valid rays, occluded flags equal."""
+    import torch
+
+    valid = ref_hit.valid
+    flags = int((hit.valid != valid).sum())
+    t_off = int((valid & ~torch.isclose(hit.t, ref_hit.t, **LOOP_T_TOL)).sum())
+    occ = int((blocked != ref_blocked).sum())
+    err = (hit.t[valid] - ref_hit.t[valid]).abs().max().item() if valid.any() else 0.0
+    log(f"[{label}] {what}: {int(valid.sum())} hits, {int(ref_blocked.sum())} blocked of "
+        f"{valid.numel()} rays; differing valid flags {flags}, t beyond rtol "
+        f"{LOOP_T_TOL['rtol']} / atol {LOOP_T_TOL['atol']} {t_off} (max |dt| {err:.3e}), "
+        f"occluded flags {occ}")
+    if flags or t_off or occ:
+        raise AssertionError(f"{label}: {what} differ")
+
+
+def check_loop_launches(label, counts, instances):
+    """The loop oracle's launches: one closest-hit and one occlusion walk
+    (K2, K3) an instance, none of K4-K7."""
+    check_launches(label, counts, ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7"))
+    if counts["K2"] != instances or counts["K3"] != instances:
+        raise AssertionError(f"{label}: the loop did not query once an instance: {counts}")
+
+
+def loop_oracle_phase(bare, bfi_scene, device):
+    """``[loop_oracle]``: the stand-in mesh (scaled by 0.4) in
+    ``tests/test_two_level.py``'s 100-instance grid; ``LOOP_RAYS`` random
+    rays (numpy seed 7, spread over the grid as that test spreads them)
+    through K6/K7 (``intersect_two_level`` / ``occluded_two_level``) and
+    through the per-instance loop of flat queries (K1-K3 once an instance),
+    under the test's criteria; then the same rays through
+    ``bunny_field_instanced``'s accel unsorted (``sort=False``) against
+    sorted.  Returns the launch counts of the phase."""
+    import numpy as np
+    import torch
+
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.accel import two_level as tl
+    from mcrt_tpu_torch.core.types import Rays
+    from mcrt_tpu_torch.scene import builders
+    from mcrt_tpu_torch.scene.dynamic import translation
+    from mcrt_tpu_torch.scene.objloader import load_obj
+    from mcrt_tpu_torch.tools.card import card_line
+
+    label = "loop_oracle"
+    mesh = load_obj(bare)
+    sb = builders.SceneBuffers()
+    sb.add_mesh(mesh.positions * np.float32(0.4), mesh.indices, 0, normals=mesh.normals)
+    positions, normals, uvs, indices, face_shape, shape_mat, _ = sb.concat()
+    src = builders.build_scene(positions, normals, uvs, indices, face_shape, shape_mat,
+                               [builders.UberMaterial(diffuse=(0.5,) * 3)], device=device)
+    tw = np.stack([translation((ix * 1.2, 0.0, iz * 1.2))
+                   for ix in range(LOOP_GRID) for iz in range(LOOP_GRID)])
+    t0 = time.perf_counter()
+    accel = tl.build_two_level(src.geometry, tw, np.arange(len(tw), dtype=np.int32))
+    log(f"[{label}] {len(indices)} source triangles, {accel.num_instances} instances, "
+        f"{accel.blas.num_blocks} BLAS blocks, {accel.num_pairs} pairs, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(7)
+    o = rng.uniform(-2.5, 2.5, (LOOP_RAYS, 3)).astype(np.float32)
+    d = rng.normal(size=(LOOP_RAYS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = (o * np.float32([3.0, 1.0, 3.0]) + np.float32([5.0, 0.0, 5.0])).astype(np.float32)
+    rays = Rays.make(torch.from_numpy(o).to(device), torch.from_numpy(d).to(device))
+    geom = src.geometry
+
+    def both(intersect, occluded, what, **kw):
+        kernels.reset_launch_counts()
+        ms, _, out = timed(lambda: (intersect(geom, accel, rays, **kw),
+                                    occluded(geom, accel, rays, **kw)), 1)
+        counts = kernels.launch_counts()
+        log(f"[{label}] {what}: closest hit and occlusion {ms:.2f} ms, launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        return out, counts
+
+    pair, counts = both(tl.intersect_two_level, tl.occluded_two_level, "K6/K7")
+    check_launches(label, counts, ("K1", "K6", "K7"), ("K2", "K3", "K4", "K5"))
+    loop, loop_counts = both(tl.intersect_two_level_loop, tl.occluded_two_level_loop,
+                             "the loop of flat queries")
+    check_loop_launches(label, loop_counts, accel.num_instances)
+    check_queries(label, "K6/K7 against the loop", *pair, *loop)
+    total = {k: counts[k] + loop_counts[k] for k in counts}
+
+    geom = bfi_scene.geometry
+    accel = tl.build_two_level_scene(geom, bfi_scene.shapes.to_world, bfi_scene.instances)
+    unsorted, counts = both(tl.intersect_two_level, tl.occluded_two_level,
+                            "bunny_field_instanced unsorted", sort=False)
+    check_launches(label, counts, ("K1", "K6", "K7"), ("K2", "K3", "K4", "K5"))
+    ordered, sorted_counts = both(tl.intersect_two_level, tl.occluded_two_level,
+                                  "bunny_field_instanced sorted")
+    check_queries(label, "bunny_field_instanced's queries unsorted against sorted",
+                  *unsorted, *ordered)
+    log(f"[{label}] card {card_line()}")
+    return {k: total[k] + counts[k] + sorted_counts[k] for k in total}
+
+
+def bunny_phases(device):
+    """Phase 13: the three ``bunny.obj`` scenes on a stand-in mesh written
+    by ``write_standin_obj`` into a temporary directory (with ``vn``/``vt``
+    for ``heavy_gallery``, positions alone for the others), at their
+    default grids, and the loop oracle.  Returns (each main-path phase's
+    ``main_path_phase`` result, each phase's launch counts)."""
+    import tempfile
+
+    import numpy as np
+
+    from mcrt_tpu_torch.scene import builders
+    from mcrt_tpu_torch.scene.objloader import load_obj
+
+    k1_3, k4_5, k6_7 = ("K1", "K2", "K3"), ("K4", "K5"), ("K6", "K7")
+    walk = partial(walk_frame_phase, ids=k1_3[1:])
+    with tempfile.TemporaryDirectory() as tmp:
+        full = write_standin_obj(os.path.join(tmp, "standin_vn_vt.obj"))
+        bare = write_standin_obj(os.path.join(tmp, "standin.obj"), attributes=False)
+        a, b = load_obj(full), load_obj(bare)
+        n_err = float(np.abs(a.normals - b.normals).max())
+        log(f"[bunny] stand-in mesh: {len(b.indices)} triangles, {len(b.positions)} vertices; "
+            f"the loader's normals of the file without vn against the file's vn: max |dn| "
+            f"{n_err:.2e}")
+        if not np.array_equal(a.positions, b.positions) or n_err > 1e-4:
+            raise AssertionError("bunny: the two stand-in files load to different meshes")
+        scenes = {"bunny_field": builders.bunny_field(bunny_path=bare, device=device),
+                  "heavy_gallery": builders.heavy_gallery(bunny_path=full, device=device)}
+        for name, (scene, _) in scenes.items():
+            faces = int(scene.geometry.face_valid.sum())
+            log(f"[{name}] {faces} triangles")
+            if faces != STANDIN_TRIANGLES[name]:
+                raise AssertionError(f"{name}: {faces} triangles")
+        bfi = builders.bunny_field_instanced(bunny_path=bare, device=device)
+        log(f"[bunny_field_instanced] one {len(b.indices)}-triangle BLAS in "
+            f"{bfi[0].instances.num} instances")
+        if bfi[0].instances.num != 48:
+            raise AssertionError("bunny_field_instanced: not 48 instances")
+        paths = {
+            "bunny_field": main_path_phase("bunny_field", *scenes["bunny_field"], device, k1_3,
+                                           k4_5 + k6_7, frame_phases=(cull_frame_phase, walk)),
+            "heavy_gallery": main_path_phase("heavy_gallery", *scenes["heavy_gallery"], device,
+                                             k1_3, k4_5 + k6_7,
+                                             frame_phases=(cull_frame_phase, walk)),
+            "heavy_gallery_sbvh": main_path_phase("heavy_gallery_sbvh",
+                                                  *scenes["heavy_gallery"], device, k1_3,
+                                                  k4_5 + k6_7, cfg=main_cfg("SBVH")),
+        }
+        sah, sbvh = paths["heavy_gallery"][4], paths["heavy_gallery_sbvh"][4]
+        rel = mean_relative(sbvh, sah)
+        log(f"[heavy_gallery_sbvh] mean-relative difference from the SAH image {rel:.5f} "
+            f"(bound {HEAVY_REL})")
+        agreement("heavy_gallery_sbvh", "against the SAH render of the same frames", sbvh, sah)
+        if rel >= HEAVY_REL:
+            raise AssertionError(f"heavy_gallery: SBVH and SAH images differ by {rel:.5f}")
+        paths["heavy_gallery_bdpt"] = main_path_phase(
+            "heavy_gallery_bdpt", *scenes["heavy_gallery"], device, k1_3, k4_5 + k6_7,
+            cfg=main_cfg(integrator="BDPT", size=128, depth=3))
+        paths["bunny_field_instanced"] = main_path_phase(
+            "bunny_field_instanced", *bfi, device, ("K1",) + k6_7, k1_3[1:] + k4_5,
+            frame_phases=(cull_frame_phase, partial(walk_frame_phase, ids=k6_7)))
+        counts = {label: v[0] for label, v in paths.items()}
+        counts["loop_oracle"] = loop_oracle_phase(bare, bfi[0], device)
+        parity_phase("heavy_gallery", builder_kw=dict(grid=PARITY_GRID, bunny_path=full))
+    return paths, counts
+
+
 def main() -> int:
     import torch
 
@@ -2918,6 +3168,9 @@ def main() -> int:
     phase_counts["profiler"] = profiler_phase(device)
     with torch.no_grad():
         phase_counts.update(accel_phases(scene, camera, device))
+        bunny_paths, bunny_counts = bunny_phases(device)
+    paths.update(bunny_paths)
+    phase_counts.update(bunny_counts)
     baked, inst = paths["main"][3], paths["instanced"][3]
     log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
         f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")

@@ -55,11 +55,14 @@ class Intersector(NamedTuple):
     accel: object
 
 
-def blocked_intersector(acc) -> Intersector:
-    """Bind blocked-accel query closures around an accel."""
+def blocked_intersector(acc, sort: bool | None = None) -> Intersector:
+    """Bind blocked-accel query closures around an accel.  ``sort`` says
+    whether the queries sort their rays for coherence; by default they do
+    from ``SORT_MIN_BLOCKS`` blocks on."""
     from .blocked import intersect_blocked, occluded_blocked
 
-    sort = acc.num_blocks >= SORT_MIN_BLOCKS
+    if sort is None:
+        sort = acc.num_blocks >= SORT_MIN_BLOCKS
     return Intersector(
         intersect=lambda s, r: intersect_blocked(s.geometry, acc, r, sort=sort),
         occluded=lambda s, r: occluded_blocked(s.geometry, acc, r, sort=sort),

@@ -25,7 +25,10 @@ the hit's shape then comes from the face table).  ``refit_two_level``
 and ``refit_two_level_scene`` move the instances without a rebuild: they
 keep the BLAS and the pair decomposition and recompute, in torch ops on
 the accel's device, the instance matrices, the world rows ``tw_rows`` the
-walks read and the pair boxes.
+walks read and the pair boxes.  ``intersect_two_level_loop`` and
+``occluded_two_level_loop`` are the JAX package's conformance oracle of
+K6/K7: the flat blocked queries (K1-K3 on the card) run once an instance
+on rays moved into its object space.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from ..scene.scene import Geometry, take_clip
 from . import kernels
 from .blocked import (BIG, BLOCK, GROUP, TILE, BlockedAccel, _kernel_or_plain, _sorted_table,
                       _unsort, _walk_plain, build_blocked, chunk_union, cull_plain,
-                      lists_from_keys)
+                      intersect_blocked, lists_from_keys, occluded_blocked)
 
 INST_BITS = 12  # pair code = (block << INST_BITS) | instance
 MAX_INSTANCES = 1 << INST_BITS
@@ -367,12 +370,20 @@ def _query2_any(rays_packed, accel: TwoLevelAccel):
     return kernels.occluded2(counts, rays_packed, lists, *args, accel.pair_aabb, TILE, GROUP)
 
 
+def _object_rays(rays: Rays, m: torch.Tensor) -> Rays:
+    """The rays under the affine ``m``: one (4, 4) for all rays or one
+    (N, 4, 4) per ray.  Directions keep their length, so an object-space t
+    is the world-space t."""
+    r = m[..., :3, :3]
+    return rays.replace(o=(r * rays.o[:, None, :]).sum(-1) + m[..., :3, 3],
+                        d=(r * rays.d[:, None, :]).sum(-1))
+
+
 def _resolve_uv2(accel: TwoLevelAccel, slot, inst, rays: Rays):
     """Barycentrics of each ray's winning (slot, instance), from the ray in
     the instance's object space."""
-    m = take_clip(accel.world_to_object, inst.clamp_min(0))  # (N, 4, 4)
-    o = (m[:, :3, :3] * rays.o[:, None, :]).sum(-1) + m[:, :3, 3]
-    d = (m[:, :3, :3] * rays.d[:, None, :]).sum(-1)
+    obj = _object_rays(rays, take_clip(accel.world_to_object, inst.clamp_min(0)))
+    o, d = obj.o, obj.d
     cols = accel.blas.tri[:, slot.clamp_min(0).long()]  # (16, N)
     p0, e1, e2 = cols[0:3].T, cols[3:6].T, cols[6:9].T
     pv = torch.linalg.cross(d, e2, dim=-1)
@@ -386,12 +397,14 @@ def _resolve_uv2(accel: TwoLevelAccel, slot, inst, rays: Rays):
     return u.clamp(0.0, 1.0), v.clamp(0.0, 1.0)
 
 
-def intersect_two_level(source: Geometry, accel: TwoLevelAccel, rays: Rays) -> Hit:
+def intersect_two_level(source: Geometry, accel: TwoLevelAccel, rays: Rays,
+                        sort: bool = True) -> Hit:
     """Closest hit over all instances; ``shape`` is the instance's shape id
     (or the face table's for free geometry), ``prim`` indexes the shared
-    global face table."""
+    global face table.  ``sort=False`` hands the cull and the walk the rays
+    in their given order (the coherence sort only speeds them up)."""
     n = rays.n
-    packed, order = _sorted_table(rays, accel, True)
+    packed, order = _sorted_table(rays, accel, sort)
     t, slot, inst = _query2_closest(packed, accel)
     t, slot, inst = (_unsort(a, order, n) for a in (t, slot, inst))
     found = slot >= 0
@@ -407,8 +420,57 @@ def intersect_two_level(source: Geometry, accel: TwoLevelAccel, rays: Rays) -> H
                shape=shape.to(torch.int32), u=u, v=v, valid=valid)
 
 
-def occluded_two_level(source: Geometry, accel: TwoLevelAccel, rays: Rays) -> torch.Tensor:
+def occluded_two_level(source: Geometry, accel: TwoLevelAccel, rays: Rays,
+                       sort: bool = True) -> torch.Tensor:
     """Any-hit query over all instances: (N,) bool, True where blocked."""
-    packed, order = _sorted_table(rays, accel, True)
+    packed, order = _sorted_table(rays, accel, sort)
     out = _query2_any(packed, accel)
     return (_unsort(out, order, rays.n) > 0.0) & rays.active
+
+
+# --------------------------------------------------------------------------
+# The per-instance loop oracle: the flat blocked queries (K1-K3 on the card)
+# on the shared BLAS, once per instance, with the rays moved into the
+# instance's object space.  It holds for an accel of one BLAS
+# (``build_two_level``, or ``build_two_level_scene`` of a scene whose faces
+# all belong to one source mesh): the queries walk every block of
+# ``accel.blas`` under each instance.
+# --------------------------------------------------------------------------
+
+
+def intersect_two_level_loop(source: Geometry, accel: TwoLevelAccel, rays: Rays) -> Hit:
+    """Closest hit over the instances, one flat query each: a ray's
+    ``tmax`` is clipped to its best t so far, and a later instance wins
+    only at a smaller t."""
+    n, dev = rays.n, rays.o.device
+    best = Hit(t=torch.full((n,), F32_MAX, dtype=torch.float32, device=dev),
+               prim=torch.full((n,), -1, dtype=torch.int32, device=dev),
+               shape=torch.full((n,), -1, dtype=torch.int32, device=dev),
+               u=torch.zeros((n,), dtype=torch.float32, device=dev),
+               v=torch.zeros((n,), dtype=torch.float32, device=dev),
+               valid=torch.zeros((n,), dtype=torch.bool, device=dev))
+    for i in range(accel.num_instances):
+        r_obj = _object_rays(rays, accel.world_to_object[i])
+        r_obj = r_obj.replace(tmax=torch.minimum(r_obj.tmax, best.t))
+        h = intersect_blocked(source, accel.blas, r_obj)
+        better = h.valid & (h.t < best.t)
+        sid = torch.where(accel.shape_id[i] >= 0, accel.shape_id[i], h.shape)
+        best = Hit(t=torch.where(better, h.t, best.t),
+                   prim=torch.where(better, h.prim, best.prim),
+                   shape=torch.where(better, sid, best.shape),
+                   u=torch.where(better, h.u, best.u),
+                   v=torch.where(better, h.v, best.v),
+                   valid=best.valid | better)
+    return best
+
+
+def occluded_two_level_loop(source: Geometry, accel: TwoLevelAccel,
+                            rays: Rays) -> torch.Tensor:
+    """Any-hit query over the instances, one flat query each; a ray blocked
+    by one instance is inactive for the rest."""
+    blocked = torch.zeros((rays.n,), dtype=torch.bool, device=rays.o.device)
+    for i in range(accel.num_instances):
+        b = occluded_blocked(source, accel.blas, _object_rays(rays, accel.world_to_object[i]))
+        rays = rays.replace(active=rays.active & ~b)
+        blocked = blocked | b
+    return blocked

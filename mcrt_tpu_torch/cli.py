@@ -6,9 +6,11 @@
     python -m mcrt_tpu_torch info
 
 Every command runs on the CUDA card unless ``--device`` names another
-(``--device cpu``).  ``--config`` reads a YAML ``RenderConfig`` and needs
-PyYAML.  ``view`` serves the progressive viewer (``viewer.py``) until
-interrupted (SIGINT, Ctrl-C).  ``bench`` (the port's benchmark) is not
+(``--device cpu``).  The scenes ``bunny_field``, ``heavy_gallery`` and
+``bunny_field_instanced`` read ``bunny.obj`` from ``$MCRT_ASSETS``; without
+it the command exits non-zero with the builder's message.  ``--config``
+reads a YAML ``RenderConfig`` and needs PyYAML.  ``view`` serves the
+progressive viewer (``viewer.py``) until interrupted (SIGINT, Ctrl-C).  ``bench`` (the port's benchmark) is not
 written yet and raises.
 """
 from __future__ import annotations
@@ -19,8 +21,9 @@ import sys
 import threading
 import time
 
+# the last three read bunny.obj from $MCRT_ASSETS (scene/builders.py: _asset_path)
 SCENES = ("cornell_box", "glass_gallery", "textured_hall", "instanced_boxes", "sphere_field",
-          "sphere_field_instanced")
+          "sphere_field_instanced", "bunny_field", "heavy_gallery", "bunny_field_instanced")
 
 
 def _load_config(args):
@@ -58,7 +61,10 @@ def _load_scene(args, device):
     if args.scene not in SCENES:
         sys.exit(f"unknown scene {args.scene!r}; use one of {', '.join(SCENES)} "
                  "or --obj FILE")
-    return getattr(builders, args.scene)(device=device)
+    try:
+        return getattr(builders, args.scene)(device=device)
+    except FileNotFoundError as e:  # a scene whose asset is missing
+        sys.exit(f"{args.scene}: {e}")
 
 
 def cmd_render(args) -> int:

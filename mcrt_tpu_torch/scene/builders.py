@@ -4,13 +4,14 @@ and no-bake instancing, quad / box / icosphere primitives, the offline demo
 scenes (``cornell_box``, ``glass_gallery``, the textured ``textured_hall``,
 the instanced ``instanced_boxes``) and ``sphere_field`` with its instanced
 form ``sphere_field_instanced``, the large stand-in scenes of the
-main-path runs, and ``scene_from_obj``, a scene loaded from an OBJ file
-with its MTL materials and texture files.  The numpy code of the scenes is
-the JAX package's, so both packages build identical scenes.  Every builder
-puts its scene on the CUDA card unless the caller names another
-``device``.
-
-Not ported yet (ROADMAP): the builders of ``bunny.obj`` scenes."""
+main-path runs, ``scene_from_obj``, a scene loaded from an OBJ file with
+its MTL materials and texture files, and the scenes of an OBJ mesh in
+many copies: ``bunny_field``, ``heavy_gallery`` and
+``bunny_field_instanced``, which read the Stanford bunny's ``bunny.obj``
+from ``$MCRT_ASSETS`` unless given ``bunny_path``.  The numpy code of the
+scenes is the JAX package's (the same random streams included), so both
+packages build identical scenes.  Every builder puts its scene on the
+CUDA card unless the caller names another ``device``."""
 from __future__ import annotations
 
 import os
@@ -21,8 +22,9 @@ import torch
 from ..camera.pinhole import PinholeCamera
 from ..core.types import default_device
 from .dynamic import rotation_y, scale, translation
-from .scene import (LIGHT_DIRECTIONAL, LIGHT_MESH, LIGHT_POINT, N_TEX_SLOTS, TEX_DIFFUSE,
-                    TEX_NORMAL, Instances, Scene, UberMaterial, build_scene, make_lights)
+from .scene import (LIGHT_DIRECTIONAL, LIGHT_DISK, LIGHT_MESH, LIGHT_POINT, N_TEX_SLOTS,
+                    TEX_DIFFUSE, TEX_NORMAL, Instances, Scene, UberMaterial, build_scene,
+                    make_lights)
 from .textures import AtlasBuilder
 
 
@@ -211,19 +213,25 @@ def cornell_box(light_intensity=(17.0, 12.0, 4.0), device=None):
     return scene, camera
 
 
-def scene_from_obj(path: str, camera_kw: dict | None = None, device=None):
+def scene_from_obj(path: str, extra_lights: list[dict] | None = None, transform=None,
+                   camera_kw: dict | None = None, device=None):
     """A Scene from an OBJ file: one shape per OBJ material; materials with
-    a nonzero Ke become triangle-mesh area lights of radiance Ke.  Texture
-    files are decoded into the atlas and wired to the material slots:
-    ``map_Kd`` linearized from sRGB into the diffuse slot, ``map_bump`` read
-    linear into the normal-map slot; a missing file leaves the slot empty.
-    The camera looks at the mesh's box unless ``camera_kw`` says
-    otherwise."""
+    a nonzero Ke become triangle-mesh area lights of radiance Ke, and
+    ``extra_lights`` (host light dicts, as ``make_lights`` takes them) are
+    appended after them.  ``transform`` (4x4) moves the positions before
+    the scene is built.  Texture files are decoded into the atlas and wired
+    to the material slots: ``map_Kd`` linearized from sRGB into the diffuse
+    slot, ``map_bump`` read linear into the normal-map slot; a missing file
+    leaves the slot empty.  The camera looks at the mesh's box unless
+    ``camera_kw`` says otherwise."""
     from .objloader import load_obj
     from .textures import load_texture_image
 
     device = default_device(device)
     mesh = load_obj(path)
+    if transform is not None:
+        m = np.asarray(transform, np.float32)
+        mesh.positions = mesh.positions @ m[:3, :3].T + m[:3, 3]
 
     sb = SceneBuffers()
     materials = [m.to_uber() for m in mesh.materials]
@@ -263,6 +271,8 @@ def scene_from_obj(path: str, camera_kw: dict | None = None, device=None):
                           normals=mesh.normals[used], uvs=mesh.uvs[used], light_id=light_id)
         if light_id >= 0:
             host_lights.append({"type": LIGHT_MESH, "intensity": ke, "shape": sid})
+    if extra_lights:
+        host_lights.extend(extra_lights)
 
     positions, normals, uvs, indices, face_shape, shape_mat, shape_light = sb.concat()
     lights = make_lights(host_lights, positions, indices, face_shape, device=device)
@@ -544,4 +554,198 @@ def instanced_boxes(grid: int = 3, bake: bool = False,
                         shape_to_world=tw, instances=instances, device=device)
     camera = PinholeCamera.look_at(eye=(0.0, grid * 1.1, grid * 1.9), target=(0.0, 0.3, 0.0),
                                    fov_deg=50.0, aspect=1.0, device=device)
+    return scene, camera
+
+
+# ---------------------------------------------------------------------------
+# Scenes of an OBJ mesh in many copies: the Stanford bunny's by default
+# (``bunny.obj`` under ``$MCRT_ASSETS``), any closed mesh through
+# ``bunny_path``
+# ---------------------------------------------------------------------------
+
+def _asset_path(name: str) -> str:
+    """A demo-scene asset: ``$MCRT_ASSETS/<name>``.  The port has no default
+    directory: without the variable, or with the file missing, it raises
+    ``FileNotFoundError`` naming the variable (the builders also take the
+    file itself as ``bunny_path``)."""
+    base = os.environ.get("MCRT_ASSETS")
+    if base is None:
+        raise FileNotFoundError(
+            f"demo-scene asset {name!r}: MCRT_ASSETS is not set; set MCRT_ASSETS "
+            "to a directory containing it (e.g. the Stanford bunny OBJ) or pass bunny_path")
+    path = os.path.join(base, name)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"demo-scene asset {name!r} not found at {path}; set MCRT_ASSETS "
+            "to a directory containing it (e.g. the Stanford bunny OBJ)")
+    return path
+
+
+def _unit_mesh(bunny_path: str | None):
+    """(the loaded OBJ, its positions scaled into the unit box, centred in
+    x and z and standing on y = 0)."""
+    from .objloader import load_obj
+
+    mesh = load_obj(_asset_path("bunny.obj") if bunny_path is None else bunny_path)
+    pos = mesh.positions
+    lo, hi = pos.min(0), pos.max(0)
+    sc = 1.0 / max(hi - lo)
+    pos = (pos - (lo + hi) / 2) * sc
+    pos[:, 1] -= pos[:, 1].min()
+    return mesh, pos
+
+
+def bunny_field(grid: int = 7, bunny_path: str | None = None,
+                device=None) -> tuple[Scene, PinholeCamera]:
+    """A grid of bunnies on a floor (about 250k triangles at ``grid=7``:
+    49 copies of the mesh, each with its own random uber material), lit by
+    a disk light and a directional light: the JAX bench's default scene."""
+    device = default_device(device)
+    mesh, pos = _unit_mesh(bunny_path)
+    sb = SceneBuffers()
+    rng = np.random.default_rng(0)
+    mats = []
+    for gx in range(grid):
+        for gz in range(grid):
+            mid = len(mats)
+            mats.append(UberMaterial(diffuse=tuple(rng.uniform(0.2, 0.8, 3)),
+                                     glossy=(0.3, 0.3, 0.3),
+                                     roughness=float(rng.uniform(0.05, 0.5))))
+            offset = np.asarray([(gx - (grid - 1) / 2) * 1.5, 0.0,
+                                 (gz - (grid - 1) / 2) * 1.5], np.float32)
+            sb.add_mesh(pos + offset, mesh.indices, mid, normals=mesh.normals, uvs=mesh.uvs)
+    floor_m = len(mats)
+    mats.append(UberMaterial(diffuse=(0.6, 0.6, 0.6), glossy=(0.2, 0.2, 0.2), roughness=0.3))
+    ext = grid * 1.0
+    fp, fi = quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext])
+    sb.add_mesh(fp, fi, floor_m)
+
+    positions, normals, uvs, indices, face_shape, shape_mat, shape_light = sb.concat()
+    lights = make_lights(
+        [{"type": LIGHT_DISK, "position": (0.0, ext, 0.0), "direction": (0.0, -1.0, 0.0),
+          "intensity": (20.0, 18.0, 15.0), "radius": ext * 0.3},
+         {"type": LIGHT_DIRECTIONAL, "direction": (-0.4, -1.0, -0.3),
+          "intensity": (2.0, 2.0, 1.8)}],
+        positions, indices, face_shape, device=device)
+    scene = build_scene(positions, normals, uvs, indices, face_shape, shape_mat, mats,
+                        lights=lights, shape_light=shape_light, device=device)
+    camera = PinholeCamera.look_at(eye=(0.0, ext * 0.7, ext * 1.2), target=(0.0, 0.3, 0.0),
+                                   fov_deg=50.0, aspect=1.0, device=device)
+    return scene, camera
+
+
+def heavy_gallery(grid: int = 6, bunny_path: str | None = None,
+                  device=None) -> tuple[Scene, PinholeCamera]:
+    """A grid of bunnies (about 180k triangles at ``grid=6``) in diffuse,
+    glossy, mirror and glass uber materials on a checker-textured,
+    normal-mapped floor, under all four light types (mesh, point, disk and
+    directional): textures, materials and lights of every kind at scale in
+    one scene."""
+    device = default_device(device)
+    mesh, pos = _unit_mesh(bunny_path)
+    atlas_b = AtlasBuilder()
+    tid_check = atlas_b.add(_checkerboard())
+    tid_nm = atlas_b.add(_ridge_normal_map())
+    tex_floor = np.full((N_TEX_SLOTS,), -1, np.int32)
+    tex_floor[TEX_DIFFUSE] = tid_check
+    tex_floor[TEX_NORMAL] = tid_nm
+    mats = [
+        UberMaterial(diffuse=(1.0, 1.0, 1.0), glossy=(0.1, 0.1, 0.1), roughness=0.3,
+                     tex=tex_floor),                                       # 0: textured floor
+        UberMaterial(diffuse=(0.0, 0.0, 0.0), kr=(0.95, 0.95, 0.95)),     # 1: mirror
+        UberMaterial(diffuse=(0.0, 0.0, 0.0), kr=(1.0, 1.0, 1.0), kt=(1.0, 1.0, 1.0),
+                     ior=1.5),                                             # 2: glass
+        UberMaterial(diffuse=(0.0, 0.0, 0.0)),                             # 3: the lamp
+    ]
+
+    sb = SceneBuffers()
+    rng = np.random.RandomState(11)
+    for gx in range(grid):
+        for gz in range(grid):
+            kind = (gx * grid + gz) % 4
+            if kind in (1, 2):  # mirror, glass
+                mid = kind
+            else:
+                mid = len(mats)
+                mats.append(UberMaterial(diffuse=tuple(rng.uniform(0.2, 0.8, 3)),
+                                         glossy=(0.25, 0.25, 0.25),
+                                         roughness=float(rng.uniform(0.08, 0.6))))
+            off = np.asarray([(gx - (grid - 1) / 2) * 1.4, 0.0,
+                              (gz - (grid - 1) / 2) * 1.4], np.float32)
+            sb.add_mesh(pos + off, mesh.indices, mid, normals=mesh.normals, uvs=mesh.uvs)
+
+    ext = grid * 0.9
+    fp, fi = quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext])
+    sb.add_mesh(fp, fi, 0, uvs=np.asarray([[0, 0], [6, 0], [6, 6], [0, 6]], np.float32))
+    lp, li = quad([-0.8, ext * 0.9, 0.8], [0.8, ext * 0.9, 0.8], [0.8, ext * 0.9, -0.8],
+                  [-0.8, ext * 0.9, -0.8])
+    lamp_sid = sb.add_mesh(lp, li, 3, light_id=0)  # emissive ceiling quad
+
+    positions, normals, uvs_a, indices, face_shape, shape_mat, shape_light = sb.concat()
+    lights = make_lights(
+        [{"type": LIGHT_MESH, "intensity": (10.0, 9.5, 9.0), "shape": lamp_sid},
+         {"type": LIGHT_POINT, "position": (ext * 0.5, ext * 0.6, ext * 0.5),
+          "intensity": (12.0, 11.0, 10.0)},
+         {"type": LIGHT_DISK, "position": (-ext * 0.5, ext * 0.8, 0.0),
+          "direction": (0.3, -1.0, 0.0), "intensity": (14.0, 13.0, 11.0),
+          "radius": ext * 0.2},
+         {"type": LIGHT_DIRECTIONAL, "direction": (-0.35, -1.0, -0.25),
+          "intensity": (1.5, 1.5, 1.4)}],
+        positions, indices, face_shape, device=device)
+    scene = build_scene(positions, normals, uvs_a, indices, face_shape, shape_mat, mats,
+                        lights=lights, shape_light=shape_light, textures=atlas_b.build(),
+                        device=device)
+    camera = PinholeCamera.look_at(eye=(0.0, ext * 0.65, ext * 1.25), target=(0.0, 0.35, 0.0),
+                                   fov_deg=52.0, aspect=1.0, device=device)
+    return scene, camera
+
+
+def bunny_field_instanced(grid: int = 7, bunny_path: str | None = None,
+                          device=None) -> tuple[Scene, PinholeCamera]:
+    """The bunny added once (at its own pose, in the middle of the floor)
+    and placed in ``grid * grid - 1`` grid cells by no-bake instances with
+    random rotations about y and heights: one BLAS of the mesh and a
+    transform an instance instead of a baked copy each."""
+    device = default_device(device)
+    mesh, pos = _unit_mesh(bunny_path)
+    sb = SceneBuffers()
+    rng_l = np.random.default_rng(0)
+    ext = grid * 0.75
+    fpos, fidx = quad([-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext], [-ext, 0, -ext])
+    sb.add_mesh(fpos, fidx, 0)
+    src = sb.add_mesh(pos, mesh.indices, 1)
+    n_mats = 4
+    k = 0
+    for gx in range(grid):
+        for gz in range(grid):
+            if gx == 0 and gz == 0:
+                continue
+            x = (gx - (grid - 1) / 2) * 1.3
+            z = (gz - (grid - 1) / 2) * 1.3
+            mt = (translation((x, 0.0, z))
+                  @ rotation_y(float(rng_l.uniform(0, 2 * np.pi)))
+                  @ scale((1.0, float(rng_l.uniform(0.8, 1.3)), 1.0)))
+            sb.add_instanced(src, 1 + k % n_mats, mt)
+            k += 1
+
+    positions, normals, uvs, indices, face_shape, shape_mat, shape_light = sb.concat()
+    tw, instances = sb.instance_table()
+    materials = [
+        UberMaterial(diffuse=(0.62, 0.62, 0.62)),
+        UberMaterial(diffuse=(0.70, 0.30, 0.25)),
+        UberMaterial(diffuse=(0.30, 0.55, 0.70), glossy=(0.25, 0.25, 0.25), roughness=0.2),
+        UberMaterial(diffuse=(0.35, 0.65, 0.30)),
+        UberMaterial(diffuse=(0.1, 0.1, 0.1), kr=(0.7, 0.7, 0.75)),
+    ]
+    lights = make_lights(
+        [{"type": LIGHT_DISK, "position": (0.0, grid * 1.2, 0.0), "direction": (0.0, -1.0, 0.0),
+          "radius": grid * 0.45, "intensity": (14.0, 13.0, 11.0)},
+         {"type": LIGHT_DIRECTIONAL, "direction": (0.35, -1.0, -0.25),
+          "intensity": (1.6, 1.5, 1.3)}],
+        positions, indices, face_shape, device=device)
+    scene = build_scene(positions, normals, uvs, indices, face_shape, shape_mat, materials,
+                        lights=lights, shape_light=shape_light, shape_to_world=tw,
+                        instances=instances, device=device)
+    camera = PinholeCamera.look_at(eye=(0.0, grid * 0.75, grid * 1.15), target=(0.0, 0.25, 0.0),
+                                   fov_deg=55.0, aspect=1.0, device=device)
     return scene, camera

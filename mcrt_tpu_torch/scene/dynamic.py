@@ -128,10 +128,14 @@ class SceneAnimator:
         s = self.base.shapes.material.shape[0]
         return np.broadcast_to(np.eye(4, dtype=np.float32), (s, 4, 4)).copy()
 
-    def set_transform(self, shape_idx: int, matrix) -> Scene:
-        """Set one shape's transform (the others identity) and return the
-        transformed scene."""
-        t = self.identity_transforms()
+    def set_transform(self, shape_idx: int, matrix, transforms=None) -> Scene:
+        """Set one shape's transform on top of ``transforms`` ((S, 4, 4), a
+        tensor or host array; the identity for every shape by default) and
+        return the transformed scene."""
+        if transforms is None:
+            t = self.identity_transforms()
+        else:
+            t = np.array(torch.as_tensor(transforms).cpu(), np.float32)
         t[shape_idx] = np.asarray(matrix, np.float32)
         return self.transformed(t)
 
@@ -150,17 +154,20 @@ def set_shape_transform(scene: Scene, shape_id: int, matrix) -> Scene:
     return scene.replace(shapes=shapes.replace(to_world=to_world, normal_mat=normal_mat))
 
 
-def make_animated_frame(animator: SceneAnimator, camera, cfg):
+def make_animated_frame(animator: SceneAnimator, camera, cfg, base_accel=None):
     """Transform, refit and render: returns ``frame_fn(to_world, accum,
     frame) -> (scene, accum)``, which moves the base scene by ``to_world``,
     refits the base scene's blocked accel with ``refit_blocked`` and folds
-    one progressive frame into ``accum``.  No host build runs after this
+    one progressive frame into ``accum``.  ``base_accel`` is a blocked
+    accel of the base scene already built (then no host build runs at
+    all); without it, one is built here.  No host build runs after this
     call."""
     from ..accel import blocked_intersector
     from ..accel.blocked import build_blocked, refit_blocked
     from ..renderer import render_frame_fn
 
-    base_accel = build_blocked(animator.base.geometry, cfg.bvh)
+    if base_accel is None:
+        base_accel = build_blocked(animator.base.geometry, cfg.bvh)
 
     def frame_fn(to_world, accum, frame):
         scene = animator.transformed(to_world)

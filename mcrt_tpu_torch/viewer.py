@@ -9,7 +9,10 @@ view of the accumulating image and the interactive edit loops:
   through ``scene.dynamic.set_shape_transform`` (a two-level refit), a
   baked shape through a ``SceneAnimator`` of the first scene (a blocked
   refit), keeping the material and light edits made since;
-- **scene switch** -> a new ``Renderer`` on a built-in scene.
+- **scene switch** -> a new ``Renderer`` on a built-in scene (``cli.SCENES``:
+  the JAX viewer's five and the port's other builders); a scene whose
+  asset (``bunny.obj`` under ``$MCRT_ASSETS``) is missing is refused on
+  stderr and the current one kept.
 
 It serves a page at ``/`` (the image, refreshed each second, and the
 controls), the tonemapped frame at ``/image.png``, ``/api/status`` (spp and
@@ -28,6 +31,7 @@ Usage: ``python -m mcrt_tpu_torch view --scene cornell_box --port 8000``.
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 import urllib.parse
@@ -423,7 +427,11 @@ class ProgressiveViewer:
         from .scene import builders
 
         device = self.renderer.device
-        scene, camera = getattr(builders, name)(device=device)
+        try:
+            scene, camera = getattr(builders, name)(device=device)
+        except FileNotFoundError as e:  # a scene whose asset is missing: keep this one
+            print(f"viewer: cannot switch to {name}: {e}", file=sys.stderr, flush=True)
+            return
         self.renderer = Renderer(scene, camera, self.renderer.cfg, device=device)
         self._scene_name = name
         self._pivot = _host(scene.center).astype(np.float32)

@@ -30,6 +30,7 @@ from mcrt_tpu.film import denoise as jdenoise
 from mcrt_tpu.film import tonemap as jtonemap
 from mcrt_tpu.scene import builders as jb
 from mcrt_tpu.utils import image as jimage
+from chip_smoke import write_standin_obj
 from mcrt_tpu_torch import Renderer, RenderConfig, cli
 from mcrt_tpu_torch.config import DenoiseConfig, IntegratorConfig, ToneMapConfig
 from mcrt_tpu_torch.film import denoise, tonemap
@@ -193,6 +194,35 @@ def test_cli_info_prints(capsys):
 def test_cli_view_and_bench_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv)
+
+
+def test_cli_renders_heavy_gallery_from_mcrt_assets(tmp_path, monkeypatch, capsys):
+    """``render --scene heavy_gallery`` at 16x16 reads ``bunny.obj`` (the
+    stand-in mesh here) from ``$MCRT_ASSETS`` and writes a PNG."""
+    write_standin_obj(str(tmp_path / "bunny.obj"), subdiv=1)
+    monkeypatch.setenv("MCRT_ASSETS", str(tmp_path))
+    out = tmp_path / "heavy.png"
+    assert cli.main(["render", "--scene", "heavy_gallery", "--device", "cpu", "--width", "16",
+                     "--height", "16", "--spp", "1", "--max-depth", "2", "--out", str(out)]) == 0
+    assert "rendered 16x16 @ 1 spp on cpu" in capsys.readouterr().out
+    img = image.read_png(str(out))
+    assert img.shape == (16, 16, 3) and img.mean() > 0
+
+
+@pytest.mark.parametrize("scene", ["bunny_field", "heavy_gallery", "bunny_field_instanced"])
+def test_cli_scene_without_its_asset_exits_nonzero(scene, tmp_path, monkeypatch):
+    """Without ``bunny.obj`` the command exits non-zero with the builder's
+    message and writes nothing (it never renders another scene); the JAX
+    CLI fails with the same message."""
+    monkeypatch.setenv("MCRT_ASSETS", str(tmp_path))
+    out = tmp_path / "none.png"
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["render", "--scene", scene, "--device", "cpu", "--width", "8", "--height", "8",
+                  "--out", str(out)])
+    assert exc.value.code not in (0, None) and "MCRT_ASSETS" in str(exc.value.code)
+    assert scene in str(exc.value.code) and not out.exists()
+    with pytest.raises(FileNotFoundError, match="MCRT_ASSETS"):
+        jcli.main(["render", "--scene", scene, "--out", str(out)])
 
 
 VIEW_ARGS = ["view", "--device", "cpu", "--port", "0", "--width", "8", "--height", "8",

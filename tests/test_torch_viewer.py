@@ -16,6 +16,8 @@ against the JAX ``ProgressiveViewer`` under the same edit sequence.
   ``MIN_AGREE`` of pixels at rtol 1e-3 / atol 1e-4.
 - ``Renderer.update_scene(rebuild_accel=False)`` keeps the intersector and
   resets the accumulation; the default refits or rebuilds.
+- The scene list holds the JAX viewer's five scenes; a switch to a scene
+  whose ``bunny.obj`` is missing keeps the current scene.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import write_standin_obj
 from mcrt_tpu_torch import Renderer, RenderConfig
 from mcrt_tpu_torch.config import IntegratorConfig
 from mcrt_tpu_torch.scene import builders
@@ -190,6 +193,38 @@ def test_scene_switcher(viewer):
     with pytest.raises(urllib.error.HTTPError, match="400"):  # so are values not numbers
         _get(viewer, "/api/camera?yaw=left")
     assert not viewer._edits
+
+
+def test_scene_list_holds_the_jax_viewers_scenes(viewer):
+    """``/api/scenes`` lists the JAX viewer's five scenes beside the port's
+    other builders (the command line's list)."""
+    from mcrt_tpu.viewer import SCENES as JAX_SCENES
+
+    from mcrt_tpu_torch.cli import SCENES
+
+    code, body = _get(viewer, "/api/scenes")
+    names = json.loads(body)["scenes"]
+    assert code == 200 and set(JAX_SCENES) <= set(names) and names == list(SCENES)
+
+
+def test_switch_to_a_scene_without_its_asset_keeps_the_scene(viewer, tmp_path, monkeypatch,
+                                                             capsys):
+    """A switch to ``bunny_field`` without ``bunny.obj`` is refused on stderr
+    and the current scene renders on; with the stand-in mesh under
+    ``$MCRT_ASSETS`` the switch takes place."""
+    monkeypatch.setenv("MCRT_ASSETS", str(tmp_path))
+    old = viewer.renderer
+    _get(viewer, "/api/scene?name=bunny_field")
+    viewer._apply_edits()
+    assert viewer.renderer is old and viewer._scene_name == "cornell_box"
+    assert "MCRT_ASSETS" in capsys.readouterr().err
+    viewer.renderer.step(1)
+    write_standin_obj(str(tmp_path / "bunny.obj"), subdiv=1)
+    _get(viewer, "/api/scene?name=bunny_field")
+    viewer._apply_edits()
+    assert viewer.renderer is not old and viewer._scene_name == "bunny_field"
+    viewer.renderer.step(1)
+    assert viewer.renderer.accum.frame == 1
 
 
 def test_transform_edit_moves_entity(viewer):
