@@ -290,6 +290,19 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    within rtol 1e-5 / atol 1e-5, occluded flags equal), then the same rays
    through ``bunny_field_instanced``'s accel unsorted against sorted,
    alike; and ``heavy_gallery`` at grid 2 card against CPU as phase 3.
+14. ``[api]``: the JAX package's public names that touch the card, called
+   as a caller of ``mcrt_tpu`` would, with no device given and the launch
+   counters set to 0 just before and read just after (they must stay 0):
+   ``Hit.none(4096)``, ``Accumulator.zeros(512, 512)`` and
+   ``sampling.sobol.sobol_matrices()`` must land on ``cuda``
+   (``Hit.none``'s fields the misses'); ``runtime.
+   device_memory_stats(index=0)`` must have its four keys and its
+   ``bytes_limit`` ``torch.cuda.mem_get_info(0)[1]``;
+   ``runtime.enumerate_devices()`` must name every card;
+   ``runtime.native.get_lib()`` must load the native library; and
+   ``runtime.buffers.register("scene", ...)`` of phase 2's ``sphere_field``
+   must count its ``nbytes`` (then released).  One line prints these
+   facts.
 
 A kernel's bound is the least time the card could take for the work these
 inputs need: the larger of its operations over 67 TFLOP/s (H100 SXM
@@ -317,7 +330,7 @@ The second-to-last stdout line is the per-kernel JSON record (``ms``,
 of seven of a main path's eight bounces, K8's float32 chain's and K9's at
 k = 128; ``launches`` are the counts of the main path that runs the
 kernel, ``vpu_bench.main()`` for K8/K9, and ``launches_by_path`` every
-phase's count of phases 4 to 13; each row's ``variants`` map holds
+phase's count of phases 4 to 14; each row's ``variants`` map holds
 every wavefront's or variant's ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by`` and ``library_ms``, and for K8 (float32, bfloat16) and K9
 (k=8, k=128) also ``issue_floor_ms`` and ``sm_mhz``), the last one
@@ -1900,9 +1913,9 @@ def ring4_phase(scene, camera, device):
 
     from mcrt_tpu_torch.accel import build_intersector, kernels
     from mcrt_tpu_torch.accel.blocked import _coherence_order
+    from mcrt_tpu_torch.core.types import Hit
     from mcrt_tpu_torch.parallel.ring import (_build_shard_accels, _take, _unsort,
-                                              closest_step, no_hit, occluded_step,
-                                              shard_faces)
+                                              closest_step, occluded_step, shard_faces)
     from mcrt_tpu_torch.tools.card import card_line
     from mcrt_tpu_torch.tools.wavefronts import wavefronts
 
@@ -1918,7 +1931,7 @@ def ring4_phase(scene, camera, device):
     wfs = wavefronts(camera, lambda r: whole.intersect(scene, r), device)
 
     def ring_closest(rays, order, each=None):
-        rays_s, best = _take(rays, order), no_hit(rays.n, device)
+        rays_s, best = _take(rays, order), Hit.none(rays.n, device)
         for s in range(RING_SHARDS):
             if each is None:
                 best = closest_step(geom, acc, s, fpad, rays_s, best)
@@ -2818,8 +2831,9 @@ def ring4_brute_phase(scene, camera, device):
 
     from mcrt_tpu_torch.accel import build_intersector, kernels
     from mcrt_tpu_torch.accel.blocked import _coherence_order
+    from mcrt_tpu_torch.core.types import Hit
     from mcrt_tpu_torch.parallel.ring import (ShardedFaces, _build_shard_accels, _take,
-                                              _unsort, closest_step, no_hit, occluded_step,
+                                              _unsort, closest_step, occluded_step,
                                               shard_faces)
     from mcrt_tpu_torch.tools.card import card_line
     from mcrt_tpu_torch.tools.wavefronts import wavefronts
@@ -2834,7 +2848,7 @@ def ring4_brute_phase(scene, camera, device):
                      RING_BRUTE_SIZE)
 
     def ring(acc, rays, order):
-        rays_s, best = _take(rays, order), no_hit(rays.n, device)
+        rays_s, best = _take(rays, order), Hit.none(rays.n, device)
         occ_s = rays_s
         blocked = torch.zeros((rays.n,), dtype=torch.bool, device=device)
         for s in range(RING_SHARDS):
@@ -3097,6 +3111,69 @@ def bunny_phases(device):
     return paths, counts
 
 
+def api_phase(scene, device):
+    """Phase 14, ``[api]``: the names of the JAX package's public surface
+    that touch the card, each with no device given.  Returns the launch
+    counts around it, which must be 0."""
+    import torch
+
+    from mcrt_tpu_torch.accel import kernels
+    from mcrt_tpu_torch.core.types import F32_MAX, Hit
+    from mcrt_tpu_torch.film.accumulate import Accumulator
+    from mcrt_tpu_torch.runtime import buffers, device_memory_stats, enumerate_devices
+    from mcrt_tpu_torch.runtime.native import get_lib
+    from mcrt_tpu_torch.runtime.platform import nbytes
+    from mcrt_tpu_torch.sampling.sobol import sobol_matrices
+    from mcrt_tpu_torch.tools.card import card_line
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hit = Hit.none(4096)
+    accum = Accumulator.zeros(512, 512)
+    mats = sobol_matrices()
+    stats = device_memory_stats(index=0)
+    devices = enumerate_devices()
+    lib = get_lib()
+    size = buffers.register("scene", scene)
+    buffers.release("scene")
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    limit = torch.cuda.mem_get_info(0)[1]
+    places = {f"Hit.{f}": getattr(hit, f).device.type
+              for f in ("t", "prim", "shape", "u", "v", "valid")}
+    places.update({f"Accumulator.{f}": getattr(accum, f).device.type
+                   for f in ("weighted", "weight")})
+    places["sobol_matrices"] = mats.device.type
+    log(f"[api] card: {card_line()}; Hit.none(4096), Accumulator.zeros(512, 512) and "
+        f"sobol_matrices() on "
+        f"{sorted(set(places.values()))}; device_memory_stats(index=0) {stats} "
+        f"(mem_get_info limit {limit}); enumerate_devices() "
+        f"{[(d.index, d.platform, d.kind, d.memory_bytes) for d in devices]}; get_lib() {lib}; "
+        f"buffers.register('scene', sphere_field) {size} bytes (nbytes {nbytes(scene)}); "
+        f"launches {counts}; {ms:.2f} ms")
+    if set(places.values()) != {"cuda"}:
+        raise AssertionError(f"[api] a constructor without a device left the card: {places}")
+    if not (bool((hit.t == F32_MAX).all()) and bool((hit.prim == -1).all())
+            and bool((hit.shape == -1).all()) and not bool(hit.valid.any())
+            and accum.frame == 0 and not bool(accum.weight.any())):
+        raise AssertionError("[api] Hit.none or Accumulator.zeros is not empty")
+    keys = {"bytes_in_use", "peak_bytes_in_use", "bytes_reserved", "bytes_limit"}
+    if set(stats) != keys or stats["bytes_limit"] != limit:
+        raise AssertionError(f"[api] device_memory_stats(index=0) is {stats}, "
+                             f"mem_get_info limit {limit}")
+    names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+    if [d.kind for d in devices] != names or {d.platform for d in devices} != {"gpu"}:
+        raise AssertionError(f"[api] enumerate_devices() does not name the cards {names}")
+    if lib is None:
+        raise AssertionError("[api] get_lib() did not load the native library")
+    if size != nbytes(scene) or size <= 0:
+        raise AssertionError(f"[api] buffers.register counted {size} of {nbytes(scene)} bytes")
+    if any(counts.values()):
+        raise AssertionError(f"[api] the public surface launched kernels: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3171,6 +3248,7 @@ def main() -> int:
         bunny_paths, bunny_counts = bunny_phases(device)
     paths.update(bunny_paths)
     phase_counts.update(bunny_counts)
+    phase_counts["api"] = api_phase(scene, device)
     baked, inst = paths["main"][3], paths["instanced"][3]
     log(f"[instanced] image mean {inst:.6f} against the baked sphere_field's {baked:.6f} "
         f"(relative difference {abs(inst - baked) / baked:.2e}, limit {INSTANCED_MEAN_RTOL})")

@@ -13,6 +13,8 @@ from .config import (AccelType, FilterType, IntegratorType, RenderConfig,
                      SamplerType)
 from .renderer import Renderer
 
+__version__ = "0.1.0"
+
 __all__ = [
     "AccelType",
     "FilterType",

@@ -36,9 +36,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..config import AccelType, RenderConfig
+from ..config import AccelType, BVHConfig, RenderConfig  # noqa: F401
 from ..core.types import Hit, Rays
 from ..scene.scene import Instances, Scene
+from .brute import intersect_brute, occluded_brute
 
 
 # The blocked queries sort their rays for coherence only from this many
@@ -101,8 +102,6 @@ def build_intersector(scene: Scene, cfg: RenderConfig) -> Intersector:
         return two_level_intersector(build_two_level_scene(
             scene.geometry, scene.shapes.to_world, instances, cfg.bvh))
     if cfg.accel == AccelType.BRUTE:
-        from .brute import intersect_brute, occluded_brute
-
         return Intersector(intersect=lambda s, r: intersect_brute(s.geometry, r),
                            occluded=lambda s, r: occluded_brute(s.geometry, r), accel=None)
     if cfg.accel == AccelType.LBVH:

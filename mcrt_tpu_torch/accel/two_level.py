@@ -443,12 +443,7 @@ def intersect_two_level_loop(source: Geometry, accel: TwoLevelAccel, rays: Rays)
     ``tmax`` is clipped to its best t so far, and a later instance wins
     only at a smaller t."""
     n, dev = rays.n, rays.o.device
-    best = Hit(t=torch.full((n,), F32_MAX, dtype=torch.float32, device=dev),
-               prim=torch.full((n,), -1, dtype=torch.int32, device=dev),
-               shape=torch.full((n,), -1, dtype=torch.int32, device=dev),
-               u=torch.zeros((n,), dtype=torch.float32, device=dev),
-               v=torch.zeros((n,), dtype=torch.float32, device=dev),
-               valid=torch.zeros((n,), dtype=torch.bool, device=dev))
+    best = Hit.none(n, dev)
     for i in range(accel.num_instances):
         r_obj = _object_rays(rays, accel.world_to_object[i])
         r_obj = r_obj.replace(tmax=torch.minimum(r_obj.tmax, best.t))

@@ -10,8 +10,9 @@ import torch
 
 from ..core import math as m
 from ..core.types import Interaction
-from ..scene.scene import (TEX_DIFFUSE, TEX_GLOSSY, TEX_IOR, TEX_KR, TEX_KT,
-                           TEX_NORMAL, TEX_OPACITY, TEX_ROUGHNESS, Scene, take_clip)
+from ..scene.scene import (N_TEX_SLOTS, TEX_DIFFUSE, TEX_GLOSSY, TEX_IOR,  # noqa: F401
+                           TEX_KR, TEX_KT, TEX_NORMAL, TEX_OPACITY, TEX_ROUGHNESS, Scene,
+                           take_clip)
 from ..scene.textures import sample_texture
 from . import bxdfs as bx
 from .uber import UberBSDF

@@ -24,6 +24,7 @@ from ..core.types import TensorRecord, device_constant
 from ..sampling import samplers as smp
 from . import bxdfs as bx
 
+N_LOBES = 5
 LOBE_DIFFUSE = 0
 LOBE_GLOSSY = 1
 LOBE_SPEC_REFL = 2

@@ -16,6 +16,7 @@ import torch
 
 from .types import device_constant
 
+EPS = 1e-6
 F32_MAX = float(torch.finfo(torch.float32).max)
 
 
@@ -140,12 +141,12 @@ def solve_2x2(a00, a01, a10, a11, b0, b1):
     return x0, x1, ok
 
 
-def transform_point(mat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    return p @ mat[..., :3, :3].transpose(-1, -2) + mat[..., :3, 3]
+def transform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return p @ m[..., :3, :3].transpose(-1, -2) + m[..., :3, 3]
 
 
-def transform_vector(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return v @ mat[..., :3, :3].transpose(-1, -2)
+def transform_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return v @ m[..., :3, :3].transpose(-1, -2)
 
 
 def transform_normal(m_inv: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

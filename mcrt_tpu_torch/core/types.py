@@ -110,6 +110,19 @@ class Hit(TensorRecord):
     v: torch.Tensor  # (N,)
     valid: torch.Tensor  # (N,) bool
 
+    @classmethod
+    def none(cls, n: int, device=None) -> "Hit":
+        """``n`` misses on ``default_device(device)``."""
+        device = default_device(device)
+        return cls(
+            t=torch.full((n,), F32_MAX, dtype=torch.float32, device=device),
+            prim=torch.full((n,), -1, dtype=torch.int32, device=device),
+            shape=torch.full((n,), -1, dtype=torch.int32, device=device),
+            u=torch.zeros((n,), dtype=torch.float32, device=device),
+            v=torch.zeros((n,), dtype=torch.float32, device=device),
+            valid=torch.zeros((n,), dtype=torch.bool, device=device),
+        )
+
 
 @dataclass
 class Interaction(TensorRecord):

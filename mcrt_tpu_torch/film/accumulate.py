@@ -9,7 +9,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import FilterConfig
-from ..core.types import TensorRecord
+from ..core.types import TensorRecord, default_device
 from .filters import eval_filter
 
 
@@ -20,7 +20,9 @@ class Accumulator(TensorRecord):
     frame: int  # samples per pixel accumulated so far
 
     @classmethod
-    def zeros(cls, width: int, height: int, device="cpu"):
+    def zeros(cls, width: int, height: int, device=None):
+        """An empty film on ``default_device(device)``."""
+        device = default_device(device)
         return cls(
             weighted=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
             weight=torch.zeros((height, width), dtype=torch.float32, device=device),

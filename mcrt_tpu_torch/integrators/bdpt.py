@@ -136,6 +136,11 @@ class Vertices(_VertexFields):
         return cls(**{f.name: torch.stack([getattr(v, f.name) for v in verts], dim=1)
                       for f in dataclasses.fields(_VertexFields)})
 
+    def at(self, i: int) -> Vertex:
+        """Vertex ``i`` of every lane."""
+        return Vertex(**{f.name: getattr(self, f.name)[:, i]
+                         for f in dataclasses.fields(self)})
+
     def gather(self, idxs: list[int]) -> "Vertices":
         """The vertices at static indices ``idxs`` stacked to (S, N, ...)."""
         return Vertices(**{f.name: _vertex_slice(getattr(self, f.name), idxs)

@@ -36,7 +36,8 @@ from ..accel.brute import intersect_brute, occluded_brute
 from ..accel.blocked import (BLOCK, BlockedAccel, _coherence_order, _morton_u32,
                              _resolve_uv, build_blocked, intersect_blocked,
                              occluded_blocked)
-from ..core.types import F32_MAX, Hit, Rays, TensorRecord
+# F32_MAX stays a name of this module, as of the JAX ring
+from ..core.types import F32_MAX, Hit, Rays, TensorRecord  # noqa: F401
 from ..scene.scene import FA_LIGHT, FA_MAT, Geometry, take_clip
 from .mesh import RAYS_AXIS, axis_size, check_mesh
 
@@ -178,15 +179,6 @@ def _merge_best(h: Hit, best: Hit, base_prim: int) -> Hit:
                u=torch.where(better, h.u, best.u),
                v=torch.where(better, h.v, best.v),
                valid=best.valid | better)
-
-
-def no_hit(n: int, device) -> Hit:
-    """The ring's starting best hit: a miss on every lane."""
-    return Hit(t=torch.full((n,), F32_MAX, device=device),
-               prim=torch.full((n,), -1, dtype=torch.int32, device=device),
-               shape=torch.full((n,), -1, dtype=torch.int32, device=device),
-               u=torch.zeros((n,), device=device), v=torch.zeros((n,), device=device),
-               valid=torch.zeros((n,), dtype=torch.bool, device=device))
 
 
 def closest_step(geom: Geometry, accel: ShardedBlockedAccel | ShardedFaces, s: int,
@@ -341,7 +333,7 @@ def make_ring_intersector(mesh, n_shards: int, fpad: int,
         local = ring.local(rays)
         order = sort_order(local)
         rays_s = _take(local, order)
-        best = no_hit(local.n, local.o.device)
+        best = Hit.none(local.n, local.o.device)
         # as many rotations as shards: every block of rays comes home
         for _ in range(ring.size):
             best = closest_step(geom, accel, me, fpad, rays_s, best)

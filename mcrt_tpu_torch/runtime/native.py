@@ -105,9 +105,15 @@ def _build() -> bool:
 _NATIVE = _NativeLib()
 
 
+def get_lib() -> ctypes.CDLL | None:
+    """The loaded native library (built on first use); None where it
+    cannot be built or loaded."""
+    return _NATIVE.get()
+
+
 def available() -> bool:
     """Whether the native library built and loaded."""
-    return _NATIVE.get() is not None
+    return get_lib() is not None
 
 
 def sah_block_order(positions: np.ndarray, indices: np.ndarray,

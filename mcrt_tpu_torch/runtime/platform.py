@@ -3,7 +3,7 @@
 ``device_memory_stats`` read ``torch.cuda``; ``nbytes`` counts the bytes of
 the tensors in a record (the JAX package's ``_nbytes``); ``BufferManager``
 keeps named byte totals of tensors (tensor records, dicts, lists) with the
-largest total seen."""
+largest total seen, and ``buffers`` is the process-wide one."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,12 +34,14 @@ def enumerate_devices() -> list[DeviceInfo]:
     return out
 
 
-def device_memory_stats(device=0) -> dict:
+def device_memory_stats(index=0) -> dict:
     """One card's memory: ``bytes_in_use`` and ``peak_bytes_in_use`` (the
     caching allocator's live tensors, ``torch.cuda.memory_stats``),
     ``bytes_reserved`` (held by the allocator) and ``bytes_limit`` (the
-    card's memory, ``torch.cuda.mem_get_info``).  ``device`` is a card's
-    index or a torch device; empty for a CPU device or without a card."""
+    card's memory, ``torch.cuda.mem_get_info``).  ``index`` is a card's
+    index (the JAX package's keyword) or a torch device.  Empty for a CPU
+    device or without a card."""
+    device = index
     if not isinstance(device, int):
         device = torch.device(device)
         if device.type != "cuda":
@@ -97,3 +99,7 @@ class BufferManager:
         lines.append(f"  {'TOTAL':<24} {self.total / 2**20:8.2f} MiB"
                      f" (max {self.max_total / 2**20:.2f})")
         return "\n".join(lines)
+
+
+# the process-wide manager, as the JAX package's
+buffers = BufferManager()

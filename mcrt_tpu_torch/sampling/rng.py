@@ -20,11 +20,12 @@ from dataclasses import dataclass
 import torch
 
 from ..config import SamplerConfig, SamplerType
+from ..core.types import TensorRecord
 from .sobol import M32, sobol_matrices, sobol_sample_scrambled
 
 
 @dataclass(frozen=True)
-class SampleStream:
+class SampleStream(TensorRecord):
     """Functional per-wavefront sample stream.  ``pixel`` are global pixel
     ids (for the Sobol scramble), ``index`` is the sample index (frame).
     ``row0`` is the wavefront row of the first lane: a rays-sharded render

@@ -15,14 +15,20 @@ import os
 import numpy as np
 import torch
 
+from ..core.types import default_device
+
 _MATS_PATH = os.path.join(os.path.dirname(__file__), "_sobol_mats.npy")
 M32 = 0xFFFFFFFF
 
 
+def sobol_matrices(device=None) -> torch.Tensor:
+    """(D, 32) direction numbers as int64 holding uint32 values, on
+    ``default_device(device)`` (loaded once per device)."""
+    return _matrices(default_device(device))
+
+
 @functools.lru_cache(maxsize=4)
-def sobol_matrices(device="cpu") -> torch.Tensor:
-    """(D, 32) direction numbers as int64 holding uint32 values (loaded
-    once per device)."""
+def _matrices(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.load(_MATS_PATH).astype(np.int64)).to(device)
 
 

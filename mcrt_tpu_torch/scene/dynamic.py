@@ -18,10 +18,13 @@ shapes in the builders.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from ..core.math import inverse3
+from ..core.types import TensorRecord
 from .scene import LIGHT_MESH, Lights, Scene, pack_face_attrs, take_clip
 
 
@@ -85,13 +88,13 @@ def _refresh_mesh_lights(lights: Lights, positions: torch.Tensor,
     return lights.replace(area=area, tri_cdf=cdf)
 
 
-class SceneAnimator:
+@dataclass
+class SceneAnimator(TensorRecord):
     """Base-scene snapshot and per-vertex shape ids; maps per-shape
     transforms to a new world-space ``Scene``."""
 
-    def __init__(self, base: Scene, vertex_shape: torch.Tensor):
-        self.base = base
-        self.vertex_shape = vertex_shape  # (V,) i32
+    base: Scene
+    vertex_shape: torch.Tensor  # (V,) i32
 
     @classmethod
     def create(cls, scene: Scene) -> "SceneAnimator":

@@ -1,7 +1,8 @@
 """The render entry point against the JAX package: the tone map and the
 denoiser (``film/``), ``Renderer.display_image``, the PNG output
 (``utils/image.py``, written without an imaging library), the device
-runtime (``runtime/platform.py``) and the command line (``cli.py``).
+runtime (``runtime/platform.py`` and its re-exports in ``runtime/``) and
+the command line (``cli.py``).
 
 Tolerances: the tone map and denoiser are elementwise float32 formulas
 and a fixed stencil, held to rtol 1e-5 / atol 1e-6 of the JAX functions
@@ -147,6 +148,23 @@ def test_platform_devices_and_buffers():
     bm.release("extra")
     assert bm.total == size and bm.max_total == size + 1056
     assert "TOTAL" in bm.report()
+
+
+@pytest.mark.parametrize("name", ["BufferManager", "DeviceInfo", "buffers",
+                                  "device_memory_stats", "enumerate_devices"])
+def test_runtime_package_reexports_platform(name):
+    """``mcrt_tpu_torch.runtime`` re-exports the platform's names, as
+    ``mcrt_tpu.runtime`` does; the process-wide ``buffers`` counts there."""
+    import mcrt_tpu_torch.runtime as runtime
+
+    assert getattr(runtime, name) is getattr(platform, name)
+    if name == "buffers":
+        t = torch.zeros(300, dtype=torch.float32)
+        before = runtime.buffers.total
+        assert runtime.buffers.register("_reexport_case", {"t": t}) == 1200
+        assert platform.buffers.total == before + 1200
+        runtime.buffers.release("_reexport_case")
+        assert platform.buffers.total == before
 
 
 def _cli_args(out, *extra):

@@ -146,7 +146,7 @@ def test_filters_match_jax(ftype):
 def test_accumulate_matches_jax():
     h, w = 6, 5
     ja = jacc.Accumulator.zeros(w, h)
-    ta = tacc.Accumulator.zeros(w, h)
+    ta = tacc.Accumulator.zeros(w, h, device="cpu")
     for f in range(3):
         rad = (RNG.uniform(-1.0, 1.5, (h * w, 3)) * 1500.0).astype(np.float32)
         jit = np.array(jrend.frame_jitter(jnp.asarray(f)))
