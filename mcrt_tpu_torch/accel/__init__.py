@@ -28,7 +28,9 @@ by the tensors' device).  The LBVH and the oracle are plain PyTorch on
 every device.  ``parallel/ring.py: build_sharded_scene`` binds a fifth
 ``Intersector``, the ray ring over face shards: each ring step runs the
 blocked queries on the rank's ``ShardedBlockedAccel``, or the oracle on
-the rank's faces (``use_blocked=False``).
+the rank's faces (``use_blocked=False``).  Every engine's queries are
+bound by ``bind_queries``, which opens their spans and tallies their live
+rays while a profiler records (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 from ..config import AccelType, BVHConfig, RenderConfig  # noqa: F401
 from ..core.types import Hit, Rays
 from ..scene.scene import Instances, Scene
+from ..utils.profiling import span, tally
 from .brute import intersect_brute, occluded_brute
 
 
@@ -56,6 +59,25 @@ class Intersector(NamedTuple):
     accel: object
 
 
+def bind_queries(closest_query: Callable[[Scene, Rays], Hit],
+                 occluded_query: Callable[[Scene, Rays], torch.Tensor], accel) -> Intersector:
+    """An ``Intersector`` whose queries each open a ``mcrt.query.closest`` /
+    ``mcrt.query.occluded`` span and tally their live rays
+    (``rays.closest`` / ``rays.occluded``) while a profiler records."""
+
+    def intersect(s, r):
+        with span("mcrt.query.closest"):
+            tally("rays.closest", r.active)
+            return closest_query(s, r)
+
+    def occluded(s, r):
+        with span("mcrt.query.occluded"):
+            tally("rays.occluded", r.active)
+            return occluded_query(s, r)
+
+    return Intersector(intersect, occluded, accel)
+
+
 def blocked_intersector(acc, sort: bool | None = None) -> Intersector:
     """Bind blocked-accel query closures around an accel.  ``sort`` says
     whether the queries sort their rays for coherence; by default they do
@@ -64,22 +86,16 @@ def blocked_intersector(acc, sort: bool | None = None) -> Intersector:
 
     if sort is None:
         sort = acc.num_blocks >= SORT_MIN_BLOCKS
-    return Intersector(
-        intersect=lambda s, r: intersect_blocked(s.geometry, acc, r, sort=sort),
-        occluded=lambda s, r: occluded_blocked(s.geometry, acc, r, sort=sort),
-        accel=acc,
-    )
+    return bind_queries(lambda s, r: intersect_blocked(s.geometry, acc, r, sort=sort),
+                        lambda s, r: occluded_blocked(s.geometry, acc, r, sort=sort), acc)
 
 
 def two_level_intersector(acc) -> Intersector:
     """Bind pair-list two-level query closures around an accel."""
     from .two_level import intersect_two_level, occluded_two_level
 
-    return Intersector(
-        intersect=lambda s, r: intersect_two_level(s.geometry, acc, r),
-        occluded=lambda s, r: occluded_two_level(s.geometry, acc, r),
-        accel=acc,
-    )
+    return bind_queries(lambda s, r: intersect_two_level(s.geometry, acc, r),
+                        lambda s, r: occluded_two_level(s.geometry, acc, r), acc)
 
 
 def build_intersector(scene: Scene, cfg: RenderConfig) -> Intersector:
@@ -102,16 +118,15 @@ def build_intersector(scene: Scene, cfg: RenderConfig) -> Intersector:
         return two_level_intersector(build_two_level_scene(
             scene.geometry, scene.shapes.to_world, instances, cfg.bvh))
     if cfg.accel == AccelType.BRUTE:
-        return Intersector(intersect=lambda s, r: intersect_brute(s.geometry, r),
-                           occluded=lambda s, r: occluded_brute(s.geometry, r), accel=None)
+        return bind_queries(lambda s, r: intersect_brute(s.geometry, r),
+                            lambda s, r: occluded_brute(s.geometry, r), None)
     if cfg.accel == AccelType.LBVH:
         from .lbvh import build_lbvh
         from .traverse import intersect_bvh, occluded_bvh
 
         bvh = build_lbvh(scene.geometry, cfg.bvh)
-        return Intersector(
-            intersect=lambda s, r: intersect_bvh(s.geometry, bvh, r, cfg.bvh),
-            occluded=lambda s, r: occluded_bvh(s.geometry, bvh, r, cfg.bvh), accel=bvh)
+        return bind_queries(lambda s, r: intersect_bvh(s.geometry, bvh, r, cfg.bvh),
+                            lambda s, r: occluded_bvh(s.geometry, bvh, r, cfg.bvh), bvh)
     if cfg.accel not in (AccelType.AUTO, AccelType.BLOCKED):
         raise ValueError(f"unknown accel {cfg.accel}")
     from .blocked import build_blocked

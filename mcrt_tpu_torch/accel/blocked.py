@@ -15,6 +15,12 @@
    tests its list's blocks ``GROUP`` at a time with an early exit.
 4. **Resolve** (torch): barycentrics for each ray's single winning slot.
 
+While a profiler records, the stages open the spans ``mcrt.query.sort``
+(the ray table, the coherence sort and the packing), ``mcrt.query.cull``
+(K1 and the visit lists), ``mcrt.query.walk`` (K2/K3 or K4/K5, or their
+plain versions) and ``mcrt.query.resolve`` (the unsort and the hit
+record), inside the query's own span.
+
 The kernels are CUDA C++ (``csrc/``), launched through the wrappers in
 ``kernels.py``.  This module holds the glue and, beside each kernel, its
 plain PyTorch version (``cull_plain``, ``closest_plain``,
@@ -45,6 +51,7 @@ import torch
 from ..config import BuilderType, BVHConfig
 from ..core.types import F32_MAX, Hit, Rays, TensorRecord
 from ..scene.scene import Geometry, take_clip
+from ..utils.profiling import span
 from . import kernels
 
 BLOCK = 128  # triangles per block (the JAX package's table layout)
@@ -824,7 +831,8 @@ def _visit_lists(rays_packed, accel: BlockedAccel):
     """Front-to-back visit lists: counts (n_tiles,) i32, lists (n_tiles,
     NBpad) i32, tn_sorted (n_tiles, NBpad) f32."""
     cull = _kernel_or_plain(rays_packed, kernels.cull, cull_plain)
-    return lists_from_keys(cull(rays_packed, accel.chunk_aabb, accel.aabb, TILE))
+    with span("mcrt.query.cull"):
+        return lists_from_keys(cull(rays_packed, accel.chunk_aabb, accel.aabb, TILE))
 
 
 def lists_from_keys(key: torch.Tensor):
@@ -865,22 +873,27 @@ def _dense_query(rays_packed, tri, closest: bool):
 def _query_closest(rays_packed, accel: BlockedAccel):
     rays_packed = rays_packed.detach()  # no gradient through the query
     if accel.num_blocks <= DENSE_BLOCKS:
-        return _dense_query(rays_packed, accel.tri, True)
+        with span("mcrt.query.walk"):
+            return _dense_query(rays_packed, accel.tri, True)
     counts, lists, tn_sorted = _visit_lists(rays_packed, accel)
-    if rays_packed.device.type == "cpu":  # as _kernel_or_plain; K2 also takes the boxes
-        return closest_plain(counts, rays_packed, lists, tn_sorted, accel.tri, TILE, GROUP)
-    return kernels.closest(counts, rays_packed, lists, tn_sorted, accel.tri, accel.aabb,
-                           TILE, GROUP)
+    with span("mcrt.query.walk"):
+        if rays_packed.device.type == "cpu":  # as _kernel_or_plain; K2 also takes the boxes
+            return closest_plain(counts, rays_packed, lists, tn_sorted, accel.tri, TILE, GROUP)
+        return kernels.closest(counts, rays_packed, lists, tn_sorted, accel.tri, accel.aabb,
+                               TILE, GROUP)
 
 
 def _query_any(rays_packed, accel: BlockedAccel):
     rays_packed = rays_packed.detach()
     if accel.num_blocks <= DENSE_BLOCKS:
-        return _dense_query(rays_packed, accel.tri, False)
+        with span("mcrt.query.walk"):
+            return _dense_query(rays_packed, accel.tri, False)
     counts, lists, _ = _visit_lists(rays_packed, accel)
-    if rays_packed.device.type == "cpu":
-        return occluded_plain(counts, rays_packed, lists, accel.tri, TILE, GROUP)
-    return kernels.occluded(counts, rays_packed, lists, accel.tri, accel.aabb, TILE, GROUP)
+    with span("mcrt.query.walk"):
+        if rays_packed.device.type == "cpu":
+            return occluded_plain(counts, rays_packed, lists, accel.tri, TILE, GROUP)
+        return kernels.occluded(counts, rays_packed, lists, accel.tri, accel.aabb, TILE,
+                                GROUP)
 
 
 def _resolve_uv(tri: torch.Tensor, slot: torch.Tensor, rays: Rays):
@@ -900,12 +913,13 @@ def _resolve_uv(tri: torch.Tensor, slot: torch.Tensor, rays: Rays):
 
 
 def _sorted_table(rays: Rays, accel: BlockedAccel, sort: bool):
-    table = _ray_table(rays)
-    order = None
-    if sort:
-        order = _coherence_order(rays, accel.bounds)
-        table = table[order]
-    return _pack_table(table), order
+    with span("mcrt.query.sort"):
+        table = _ray_table(rays)
+        order = None
+        if sort:
+            order = _coherence_order(rays, accel.bounds)
+            table = table[order]
+        return _pack_table(table), order
 
 
 def _unsort(a: torch.Tensor, order, n: int) -> torch.Tensor:
@@ -923,16 +937,17 @@ def intersect_blocked(geom: Geometry, accel: BlockedAccel, rays: Rays,
     n = rays.n
     packed, order = _sorted_table(rays, accel, sort)
     t, slot = _query_closest(packed, accel)
-    t, slot = _unsort(t, order, n), _unsort(slot, order, n)
-    found = slot >= 0
-    u, v = _resolve_uv(accel.tri, slot, rays)
-    u = torch.where(found, u, 0.0)
-    v = torch.where(found, v, 0.0)
-    prim = torch.where(found, take_clip(accel.slot_prim, slot.clamp_min(0)), -1)
-    valid = found & rays.active
-    shape = torch.where(valid, take_clip(geom.face_shape, prim.clamp_min(0)), -1)
-    return Hit(t=torch.where(valid, t, F32_MAX), prim=prim.to(torch.int32),
-               shape=shape.to(torch.int32), u=u, v=v, valid=valid)
+    with span("mcrt.query.resolve"):
+        t, slot = _unsort(t, order, n), _unsort(slot, order, n)
+        found = slot >= 0
+        u, v = _resolve_uv(accel.tri, slot, rays)
+        u = torch.where(found, u, 0.0)
+        v = torch.where(found, v, 0.0)
+        prim = torch.where(found, take_clip(accel.slot_prim, slot.clamp_min(0)), -1)
+        valid = found & rays.active
+        shape = torch.where(valid, take_clip(geom.face_shape, prim.clamp_min(0)), -1)
+        return Hit(t=torch.where(valid, t, F32_MAX), prim=prim.to(torch.int32),
+                   shape=shape.to(torch.int32), u=u, v=v, valid=valid)
 
 
 def occluded_blocked(geom: Geometry, accel: BlockedAccel, rays: Rays,
@@ -940,4 +955,5 @@ def occluded_blocked(geom: Geometry, accel: BlockedAccel, rays: Rays,
     """Any-hit query: (N,) bool, True where the segment is blocked."""
     packed, order = _sorted_table(rays, accel, sort)
     out = _query_any(packed, accel)
-    return (_unsort(out, order, rays.n) > 0.0) & rays.active
+    with span("mcrt.query.resolve"):
+        return (_unsort(out, order, rays.n) > 0.0) & rays.active

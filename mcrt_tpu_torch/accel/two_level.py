@@ -40,6 +40,7 @@ import torch
 from ..core.math import inverse3
 from ..core.types import F32_MAX, Hit, Rays, TensorRecord
 from ..scene.scene import Geometry, take_clip
+from ..utils.profiling import span
 from . import kernels
 from .blocked import (BIG, BLOCK, GROUP, TILE, BlockedAccel, _kernel_or_plain, _sorted_table,
                       _unsort, _walk_plain, build_blocked, chunk_union, cull_plain,
@@ -348,26 +349,30 @@ def pair_lists(rays_packed, accel: TwoLevelAccel):
     """Front-to-back pair visit lists (K1 over the pair boxes, then the
     per-tile sort): counts, lists, tn_sorted."""
     cull = _kernel_or_plain(rays_packed, kernels.cull, cull_plain)
-    return lists_from_keys(cull(rays_packed, accel.pair_chunk, accel.pair_aabb, TILE))
+    with span("mcrt.query.cull"):
+        return lists_from_keys(cull(rays_packed, accel.pair_chunk, accel.pair_aabb, TILE))
 
 
 def _query2_closest(rays_packed, accel: TwoLevelAccel):
     rays_packed = rays_packed.detach()  # no gradient through the query
     counts, lists, tn_sorted = pair_lists(rays_packed, accel)
     args = (accel.blas.tri, accel.pair_code, accel.tw_rows)
-    if rays_packed.device.type == "cpu":  # as _kernel_or_plain; K6 also takes the pair boxes
-        return closest2_plain(counts, rays_packed, lists, tn_sorted, *args, TILE, GROUP)
-    return kernels.closest2(counts, rays_packed, lists, tn_sorted, *args, accel.pair_aabb,
-                            TILE, GROUP)
+    with span("mcrt.query.walk"):
+        if rays_packed.device.type == "cpu":  # as _kernel_or_plain; K6 also takes the boxes
+            return closest2_plain(counts, rays_packed, lists, tn_sorted, *args, TILE, GROUP)
+        return kernels.closest2(counts, rays_packed, lists, tn_sorted, *args,
+                                accel.pair_aabb, TILE, GROUP)
 
 
 def _query2_any(rays_packed, accel: TwoLevelAccel):
     rays_packed = rays_packed.detach()
     counts, lists, _ = pair_lists(rays_packed, accel)
     args = (accel.blas.tri, accel.pair_code, accel.tw_rows)
-    if rays_packed.device.type == "cpu":
-        return occluded2_plain(counts, rays_packed, lists, *args, TILE, GROUP)
-    return kernels.occluded2(counts, rays_packed, lists, *args, accel.pair_aabb, TILE, GROUP)
+    with span("mcrt.query.walk"):
+        if rays_packed.device.type == "cpu":
+            return occluded2_plain(counts, rays_packed, lists, *args, TILE, GROUP)
+        return kernels.occluded2(counts, rays_packed, lists, *args, accel.pair_aabb, TILE,
+                                 GROUP)
 
 
 def _object_rays(rays: Rays, m: torch.Tensor) -> Rays:
@@ -406,18 +411,19 @@ def intersect_two_level(source: Geometry, accel: TwoLevelAccel, rays: Rays,
     n = rays.n
     packed, order = _sorted_table(rays, accel, sort)
     t, slot, inst = _query2_closest(packed, accel)
-    t, slot, inst = (_unsort(a, order, n) for a in (t, slot, inst))
-    found = slot >= 0
-    u, v = _resolve_uv2(accel, slot, inst, rays)
-    u = torch.where(found, u, 0.0)
-    v = torch.where(found, v, 0.0)
-    prim = torch.where(found, take_clip(accel.blas.slot_prim, slot.clamp_min(0)), -1)
-    valid = found & rays.active
-    inst_shape = take_clip(accel.shape_id, inst.clamp_min(0))
-    face_sh = take_clip(source.face_shape, prim.clamp_min(0))
-    shape = torch.where(valid, torch.where(inst_shape >= 0, inst_shape, face_sh), -1)
-    return Hit(t=torch.where(valid, t, F32_MAX), prim=prim.to(torch.int32),
-               shape=shape.to(torch.int32), u=u, v=v, valid=valid)
+    with span("mcrt.query.resolve"):
+        t, slot, inst = (_unsort(a, order, n) for a in (t, slot, inst))
+        found = slot >= 0
+        u, v = _resolve_uv2(accel, slot, inst, rays)
+        u = torch.where(found, u, 0.0)
+        v = torch.where(found, v, 0.0)
+        prim = torch.where(found, take_clip(accel.blas.slot_prim, slot.clamp_min(0)), -1)
+        valid = found & rays.active
+        inst_shape = take_clip(accel.shape_id, inst.clamp_min(0))
+        face_sh = take_clip(source.face_shape, prim.clamp_min(0))
+        shape = torch.where(valid, torch.where(inst_shape >= 0, inst_shape, face_sh), -1)
+        return Hit(t=torch.where(valid, t, F32_MAX), prim=prim.to(torch.int32),
+                   shape=shape.to(torch.int32), u=u, v=v, valid=valid)
 
 
 def occluded_two_level(source: Geometry, accel: TwoLevelAccel, rays: Rays,
@@ -425,7 +431,8 @@ def occluded_two_level(source: Geometry, accel: TwoLevelAccel, rays: Rays,
     """Any-hit query over all instances: (N,) bool, True where blocked."""
     packed, order = _sorted_table(rays, accel, sort)
     out = _query2_any(packed, accel)
-    return (_unsort(out, order, rays.n) > 0.0) & rays.active
+    with span("mcrt.query.resolve"):
+        return (_unsort(out, order, rays.n) > 0.0) & rays.active
 
 
 # --------------------------------------------------------------------------

@@ -29,6 +29,7 @@ import torch
 from ..accel import build_intersector
 from ..core import math as m
 from ..parallel.render import render_spp_batch
+from ..utils.profiling import span
 
 
 class ParamView(NamedTuple):
@@ -107,9 +108,10 @@ def render_loss_fn(camera, cfg, intersector, view: ParamView, mesh=None):
     the rendered (H*W, 3) image against ``target``."""
 
     def loss(params, scene, frames, target):
-        img = render_spp_batch(view.set(scene, params), camera, frames, cfg, intersector,
-                               mesh)
-        return torch.mean((img - target.reshape(img.shape)) ** 2)
+        with span("mcrt.loss"):
+            img = render_spp_batch(view.set(scene, params), camera, frames, cfg,
+                                   intersector, mesh)
+            return torch.mean((img - target.reshape(img.shape)) ** 2)
 
     return loss
 

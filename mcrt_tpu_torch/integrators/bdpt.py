@@ -54,6 +54,7 @@ from ..sampling import rng
 from ..scene.interaction import compute_interaction, spawn_ray, spawn_shadow_ray
 from ..scene.scene import (LIGHT_DIRECTIONAL, LIGHT_DISK, LIGHT_MESH, LIGHT_POINT,
                            Scene, take_clip)
+from ..utils.profiling import span
 
 VT_CAMERA = 0
 VT_LIGHT = 1
@@ -651,29 +652,35 @@ def trace(scene: Scene, camera: PinholeCamera, rays: Rays, stream: rng.SampleStr
     ``share.reduce_film`` completes with the other ranks' before the lanes
     lo..hi are added to the slice's radiance."""
     n = rays.n
-    cam, stream, cam_bsdfs = generate_camera_subpath(scene, camera, rays, stream,
-                                                     cfg.max_depth + 2, cfg, intersect)
-    light, stream, light_bsdfs = generate_light_subpath(scene, stream, cfg.max_depth + 1,
-                                                        cfg, intersect, n)
+    with span("mcrt.bdpt.camera_walk"):
+        cam, stream, cam_bsdfs = generate_camera_subpath(scene, camera, rays, stream,
+                                                         cfg.max_depth + 2, cfg, intersect)
+    with span("mcrt.bdpt.light_walk"):
+        light, stream, light_bsdfs = generate_light_subpath(scene, stream, cfg.max_depth + 1,
+                                                            cfg, intersect, n)
     s0_pairs, s1_pairs, conn_pairs, t1_pairs = strategy_pairs(cfg.max_depth)
 
     L = torch.zeros((n, 3), dtype=torch.float32, device=rays.o.device)
     if not s1_only and s0_pairs:
-        L = L + _family_s0(scene, camera, cam, light, cam_bsdfs, s0_pairs)
+        with span("mcrt.bdpt.s0"):
+            L = L + _family_s0(scene, camera, cam, light, cam_bsdfs, s0_pairs)
 
     # deferred visibility: every connecting family stages (shadow rays,
     # weighted contrib, ok), and chunked occlusion queries resolve them
     blocks = []
     if s1_pairs:
-        srays, contrib, ok, stream = _family_s1(scene, camera, cam, light, cam_bsdfs,
-                                                s1_pairs, stream, cfg, s1_only)
+        with span("mcrt.bdpt.s1"):
+            srays, contrib, ok, stream = _family_s1(scene, camera, cam, light, cam_bsdfs,
+                                                    s1_pairs, stream, cfg, s1_only)
         blocks.append((srays, contrib, ok, None))
     if not s1_only and conn_pairs:
-        blocks.append(_family_connect(scene, camera, cam, light, cam_bsdfs, light_bsdfs,
-                                      conn_pairs, cfg) + (None,))
+        with span("mcrt.bdpt.connect"):
+            blocks.append(_family_connect(scene, camera, cam, light, cam_bsdfs, light_bsdfs,
+                                          conn_pairs, cfg) + (None,))
     if not s1_only and t1_pairs:
-        blocks.append(_family_t1(scene, camera, cam, light, light_bsdfs, t1_pairs, cfg, n,
-                                 film, slot_of_pixel))
+        with span("mcrt.bdpt.t1"):
+            blocks.append(_family_t1(scene, camera, cam, light, light_bsdfs, t1_pairs, cfg,
+                                     n, film, slot_of_pixel))
 
     if blocks:
         all_rays = _rays_map(lambda *xs: torch.cat(xs, dim=0), *[b[0] for b in blocks])
@@ -687,9 +694,10 @@ def trace(scene: Scene, camera: PinholeCamera, rays: Rays, stream: rng.SampleStr
             if flat is None:
                 L = L + torch.sum(masked, dim=0)
             elif share is None:
-                L = _splat(L, flat, masked)
+                with span("mcrt.bdpt.splat"):
+                    L = _splat(L, flat, masked)
             else:
-                splats = share.reduce_film(
-                    _splat(L.new_zeros((slot_of_pixel.shape[0], 3)), flat, masked))
-                L = L + splats[share.lo:share.hi]
+                with span("mcrt.bdpt.splat"):
+                    splats = _splat(L.new_zeros((slot_of_pixel.shape[0], 3)), flat, masked)
+                L = L + share.reduce_film(splats)[share.lo:share.hi]
     return L

@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from ..renderer import SlotSlice, render_sample, slot_pixels
+from ..utils.profiling import span
 from .mesh import RAYS_AXIS, SPP_AXIS, axis_size, check_mesh, rays_share, spp_share
 
 
@@ -67,26 +68,30 @@ def _local_part(scene, camera, frames, cfg, intersector, mesh):
     (a long tensor), or None where the rank traced the whole image in
     row-major order)."""
     share = pix = None
-    if _sliced(mesh, intersector):
-        group = mesh.get_group(RAYS_AXIS)
-        share = SlotSlice(*rays_share(mesh, cfg.width * cfg.height),
-                          lambda film: _GroupSum.apply(film, group))
-        pix = slot_pixels(cfg.width, cfg.height, camera.position.device, share.lo, share.hi)
-    out = torch.stack([render_sample(scene, camera, f, cfg, intersector, share)[0]
-                       for f in spp_share(mesh, frames)])
-    return out.mean(0), pix
+    with span("mcrt.dist.local"):
+        if _sliced(mesh, intersector):
+            group = mesh.get_group(RAYS_AXIS)
+            share = SlotSlice(*rays_share(mesh, cfg.width * cfg.height),
+                              lambda film: _GroupSum.apply(film, group))
+            pix = slot_pixels(cfg.width, cfg.height, camera.position.device, share.lo,
+                              share.hi)
+        out = torch.stack([render_sample(scene, camera, f, cfg, intersector, share)[0]
+                           for f in spp_share(mesh, frames)])
+        return out.mean(0), pix
 
 
 def _assemble(part: torch.Tensor, pix, mesh, cfg) -> torch.Tensor:
     """The full (N, 3) mean from every rank's ``_local_part`` (detached):
     the spp mean over the spp group, then the lanes of the rays group."""
     img = part.detach().clone()
-    dist.all_reduce(img, group=mesh.get_group(SPP_AXIS))
+    with span("mcrt.dist.all_reduce"):
+        dist.all_reduce(img, group=mesh.get_group(SPP_AXIS))
     img = img / axis_size(mesh, SPP_AXIS)
     if pix is None:
         return img
     pieces = [torch.empty_like(img) for _ in range(axis_size(mesh, RAYS_AXIS))]
-    dist.all_gather(pieces, img, group=mesh.get_group(RAYS_AXIS))
+    with span("mcrt.dist.all_reduce"):
+        dist.all_gather(pieces, img, group=mesh.get_group(RAYS_AXIS))
     out = torch.empty((cfg.width * cfg.height, 3), dtype=img.dtype, device=img.device)
     out[slot_pixels(cfg.width, cfg.height, img.device)] = torch.cat(pieces)
     return out

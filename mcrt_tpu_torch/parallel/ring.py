@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..accel import Intersector
+from ..accel import bind_queries
 from ..accel.brute import intersect_brute, occluded_brute
 from ..accel.blocked import (BLOCK, BlockedAccel, _coherence_order, _morton_u32,
                              _resolve_uv, build_blocked, intersect_blocked,
@@ -388,6 +388,5 @@ def build_sharded_scene(scene, mesh, use_blocked: bool = True):
     else:
         accel = ShardedFaces()
     intersect, occluded = make_ring_intersector(mesh, n_shards, fpad, accel)
-    return scene, Intersector(intersect=lambda s, r: intersect(s.geometry, r),
-                              occluded=lambda s, r: occluded(s.geometry, r),
-                              accel=accel)
+    return scene, bind_queries(lambda s, r: intersect(s.geometry, r),
+                               lambda s, r: occluded(s.geometry, r), accel)

@@ -32,6 +32,7 @@ from .integrators import bdpt as bdpt_integrator
 from .integrators import path as path_integrator
 from .sampling import rng
 from .scene.scene import Scene
+from .utils.profiling import span
 
 
 def _radical_inverse(i: int, base: int) -> np.float32:
@@ -122,16 +123,17 @@ def render_sample(scene: Scene, camera: PinholeCamera, frame: int,
     radiance it gets in the full render."""
     w, h = cfg.width, cfg.height
     device = camera.position.device
-    jitter = frame_jitter(frame, device)
-    _, inv_order = _pixel_order_tensors(w, h, device)
-    lo, hi = (0, w * h) if share is None else (share.lo, share.hi)
-    traced = slot_pixels(w, h, device, lo, hi)
-    uv = pixel_uv(w, h, jitter=jitter[None, :], device=device)[traced]
-    o, d = camera.generate_rays(uv)
-    diff = camera.generate_ray_differentials(uv, w, h)
-    rays = Rays.make(o, d)
-    # per-pixel sample streams stay keyed by the pixel, not the trace slot
-    stream = rng.make_stream(cfg.sampler, frame, traced, row0=lo)
+    with span("mcrt.camera"):
+        jitter = frame_jitter(frame, device)
+        _, inv_order = _pixel_order_tensors(w, h, device)
+        lo, hi = (0, w * h) if share is None else (share.lo, share.hi)
+        traced = slot_pixels(w, h, device, lo, hi)
+        uv = pixel_uv(w, h, jitter=jitter[None, :], device=device)[traced]
+        o, d = camera.generate_rays(uv)
+        diff = camera.generate_ray_differentials(uv, w, h)
+        rays = Rays.make(o, d)
+        # per-pixel sample streams stay keyed by the pixel, not the trace slot
+        stream = rng.make_stream(cfg.sampler, frame, traced, row0=lo)
     if cfg.integrator.type == IntegratorType.PATH:
         radiance = path_integrator.trace(scene, rays, stream, cfg.integrator,
                                          intersector.intersect, intersector.occluded,
@@ -150,10 +152,12 @@ def render_frame_fn(scene: Scene, camera: PinholeCamera, accum: Accumulator,
                     intersector: Intersector) -> Accumulator:
     """One progressive frame: ``samples_per_pass`` samples folded into the
     accumulator (``frame`` is the number of samples already accumulated)."""
-    for i in range(cfg.samples_per_pass):
-        radiance, jitter = render_sample(scene, camera, frame + i, cfg, intersector)
-        accum = accumulate(accum, radiance, jitter, cfg.filter,
-                           cfg.integrator.max_radiance)
+    with span("mcrt.frame"):
+        for i in range(cfg.samples_per_pass):
+            radiance, jitter = render_sample(scene, camera, frame + i, cfg, intersector)
+            with span("mcrt.film"):
+                accum = accumulate(accum, radiance, jitter, cfg.filter,
+                                   cfg.integrator.max_radiance)
     return accum
 
 

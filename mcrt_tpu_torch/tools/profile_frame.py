@@ -21,39 +21,42 @@ frame:
    card.
 2. Frame times: 5 frames, each bracketed by
    ``torch.cuda.synchronize()``; prints each and the median (ms/spp).
-3. Stage times: one frame with both intersector queries and
-   ``path._shade`` wrapped in timers that synchronise before and after
-   (the syncs add idle time, so the sum exceeds a plain frame); prints each
-   bounce's shade, closest-hit and shadow-query time and the live rays.
-   Under BDPT the timers wrap the two subpath walks (their closest-hit
-   queries included), the four strategy families, each occlusion chunk
-   and the t=1 splat; "rest" is the frame outside them (camera rays, the
-   visibility masks and sums, the accumulator).
-4. Device share: ``torch.profiler`` over two unsynchronised frames; prints
-   the wall time, the device time (the summed duration of every event that
-   ran on the card: kernels, copies, fills) and the busy share, and the
-   kernels with the most device time.  The full table goes to
-   ``<out>/profile_frame_<SCENE>_<INTEGRATOR>.txt``.
+3. Stages: one unsynchronised frame under ``utils/profiling.device_trace``,
+   read from the program's own ``mcrt.*`` spans.  For the path tracer,
+   each bounce's host time of shading (``mcrt.shade``) and of the
+   closest-hit and shadow queries (``mcrt.query.closest`` /
+   ``.occluded``), with the device time of the work launched inside each;
+   under BDPT the same for the two walks, the four strategy families, the
+   t=1 splat (``mcrt.bdpt.*``) and each occlusion chunk.  The live rays
+   come from ``profiling.tallies()``, and ``RenderMetrics``' rays/s puts
+   them over stage 2's median frame.
+4. Device share, from the same trace: the frame's wall time, its device
+   busy time (the union of every kernel, copy and fill interval on the
+   card) and the busy share, and the kernels with the most device time.
+   The full table goes to ``<out>/profile_frame_<SCENE>_<INTEGRATOR>.txt``.
 
 With ``--grad`` it profiles an inverse-rendering step instead, as
 ``chip_smoke.py``'s ``[grad]`` phase runs it (``[bdpt_grad]`` under
 ``--integrator bdpt``): ``full_params``, 1 spp, the
 mean squared error against a render of other samples, ``torch.optim.Adam``
 (lr 0.05).  After one warm-up step: the host syncs of one step; ``STEPS``
-steps, each split by ``torch.cuda.synchronize()`` into forward (the loss),
-backward (``loss.backward()``) and optimizer (``Adam.step``) times, with the
-median of each and the peak memory; then ``torch.profiler`` over one
-unsynchronised step: wall and device time, the busy share, and the kernels
-with the most device time (full table in
-``<out>/profile_frame_<SCENE>_<INTEGRATOR>_grad.txt``).
+steps, each split by CUDA events recorded between its forward (the loss),
+backward (``loss.backward()``) and optimizer (``Adam.step``) on the card's
+timeline, read after one sync at the step's end, with the median of each
+and the peak memory; then the device share of one unsynchronised step, as
+stage 4 (full table in ``<out>/profile_frame_<SCENE>_<INTEGRATOR>_grad.txt``).
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
+import glob
+import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -63,8 +66,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SYNC_WARNING = "called a synchronizing CUDA operation"
 SIZE, DEPTH, FRAMES = 512, 8, 5
-STEPS = 3  # synced gradient steps under --grad
+STEPS = 3  # gradient steps timed under --grad
 SCENES = ("sphere_field", "textured_hall", "sphere_field_instanced")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+BDPT_STAGES = ("camera_walk", "light_walk", "s0", "s1", "connect", "t1", "splat")
 
 
 def sync_sites(fn) -> collections.Counter:
@@ -93,29 +98,83 @@ def sync_sites(fn) -> collections.Counter:
     return sites
 
 
-def device_share(run, label, out_path):
-    """``run()`` once under ``torch.profiler``, unsynchronised: prints the
-    wall time, the device time (the summed duration of every event on the
-    card: kernels, copies, fills), the busy share and the 15 kernels with
-    the most device time; writes the full table to ``out_path``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def traced(run):
+    """``run()`` once under ``utils/profiling.device_trace``, with no sync
+    inside it: (wall ms to a sync after it, the Chrome trace's events, the
+    profiler)."""
+    from ..utils import profiling
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        (path,) = glob.glob(os.path.join(tmp, "trace-*.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return wall_ms, events, prof
+
+
+def read_trace(events):
+    """(spans, device) from Chrome-trace events: ``spans`` maps each
+    ``mcrt.*`` span's name to ``[(host ms, device ms)]`` in the order the
+    spans opened, the device time being that of the work launched inside
+    the span; ``device`` lists ``(name, ts, dur)`` (us) of every kernel,
+    copy and fill."""
+    launches, by_corr, device = [], {}, []
+    opened = collections.defaultdict(list)
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, name = e.get("cat", ""), e.get("name", "")
+        ts, dur = float(e.get("ts", 0.0)), float(e.get("dur", 0.0))
+        corr = (e.get("args") or {}).get("correlation")
+        if cat in DEVICE_CATS:
+            device.append((name, ts, dur))
+            if corr is not None:
+                by_corr[corr] = by_corr.get(corr, 0.0) + dur
+        elif cat in ("cuda_runtime", "cuda_driver") and corr is not None:
+            launches.append((ts, corr))
+        elif cat == "user_annotation" and name.startswith("mcrt."):
+            opened[name].append((ts, dur))
+    launches.sort()
+    starts = [ts for ts, _ in launches]
+    spans = {}
+    for name, items in opened.items():
+        rows = []
+        for ts, dur in sorted(items):
+            lo, hi = bisect.bisect_left(starts, ts), bisect.bisect_right(starts, ts + dur)
+            dev_us = sum(by_corr.get(launches[i][1], 0.0) for i in range(lo, hi))
+            rows.append((dur / 1e3, dev_us / 1e3))
+        spans[name] = rows
+    return spans, device
+
+
+def busy_ms(device) -> float:
+    """The union of the device intervals, in ms: time the card ran at least
+    one op, overlaps counted once."""
+    total, end = 0.0, float("-inf")
+    for _, ts, dur in sorted(device, key=lambda d: d[1]):
+        lo, hi = max(ts, end), ts + dur
+        if hi > lo:
+            total += hi - lo
+        end = max(end, hi)
+    return total / 1e3
+
+
+def device_share(wall_ms, device, prof, label, out_path):
+    """Prints the wall time, the device busy time (``busy_ms``), the busy
+    share and the 15 kernels with the most device time of one traced run;
+    writes the profiler's full table to ``out_path``."""
     on_card = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            on_card[e.name][0] += e.time_range.elapsed_us() / 1e3
-            on_card[e.name][1] += 1
-    dev_ms = sum(ms for ms, _ in on_card.values())
-    print(f"[profile] {label}: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms, "
-          f"busy {dev_ms / wall_ms:.3f}, "
-          f"{sum(n for _, n in on_card.values())} device events")
+    for name, _, dur in device:
+        on_card[name][0] += dur / 1e3
+        on_card[name][1] += 1
+    busy = busy_ms(device)
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+          f"busy share {busy / wall_ms:.3f}, {len(device)} device events")
     for name, (ms, n) in sorted(on_card.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[profile]   {ms:9.3f} ms  {n:6d} launches  {name[:90]}")
     table = prof.key_averages()
@@ -127,6 +186,48 @@ def device_share(run, label, out_path):
     print(f"[profile] full table: {out_path}")
 
 
+def stage_lines(spans, integrator: str) -> list:
+    """Stage 3's lines from ``read_trace``'s spans: each bounce's shading
+    and queries (path tracer) or each BDPT stage and occlusion chunk, then
+    every ``mcrt.*`` span's count and totals."""
+
+    def cell(label, row):
+        return f"{label} {row[0]:.2f} ms host, {row[1]:.2f} ms device"
+
+    lines = []
+    if integrator == "path":
+        cols = [(k, spans.get(f"mcrt.{k}", [])) for k in ("query.closest", "shade",
+                                                            "query.occluded")]
+        for i in range(max(len(rows) for _, rows in cols)):
+            lines.append(f"bounce {i}: " + ", ".join(cell(k, rows[i]) for k, rows in cols
+                                                     if i < len(rows)))
+    else:
+        for k in BDPT_STAGES:
+            for row in spans.get(f"mcrt.bdpt.{k}", []):
+                lines.append(cell(k, row))
+        for i, row in enumerate(spans.get("mcrt.query.occluded", [])):
+            lines.append(cell(f"occlusion chunk {i}", row))
+    for name in sorted(spans):
+        rows = spans[name]
+        lines.append(f"{name}: {len(rows)} spans, " + cell(
+            "total", (sum(r[0] for r in rows), sum(r[1] for r in rows))))
+    return lines
+
+
+def print_stages(spans, integrator, frame_ms):
+    """Stage 3: ``stage_lines``, the live rays the queries tallied, and
+    ``RenderMetrics``' rays/s over a frame of ``frame_ms``."""
+    from ..utils import profiling
+
+    for line in stage_lines(spans, integrator):
+        print(f"[stages] {line}")
+    live = profiling.tallies()
+    rays = profiling.RenderMetrics(rays_traced=float(sum(live.values())), samples=1,
+                                   render_s=frame_ms / 1e3)
+    print(f"[stages] live rays {live}; {rays.rays_per_sec() / 1e6:.1f} Mrays/s at "
+          f"{frame_ms:.2f} ms a frame")
+
+
 def grad_main(args) -> int:
     """``--grad``: one inverse-rendering step split into forward, backward
     and optimizer time (module docstring)."""
@@ -136,6 +237,7 @@ def grad_main(args) -> int:
     from ..diff import estimators
     from ..parallel.render import render_spp_batch
     from ..scene import builders
+    from ..utils import profiling
     from .card import card_line
 
     device = torch.device("cuda", 0)
@@ -155,39 +257,47 @@ def grad_main(args) -> int:
     print(f"{args.scene}: {SIZE}^2, {DEPTH} bounces, 1 spp, {args.integrator}, full_params; "
           f"card {card_line()}")
 
-    def step(sync=False):
-        marks = []
+    def step(timed=False):
+        """One step; with ``timed``, the card's milliseconds of its forward,
+        backward and optimizer, from CUDA events read after one sync at its
+        end."""
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)] if timed else []
 
-        def mark():
-            if sync:
-                torch.cuda.synchronize()
-            marks.append(time.perf_counter())
+        def mark(i):
+            if marks:
+                marks[i].record()
 
-        mark()
+        mark(0)
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(params, scene, [0], target)
-        mark()
+        mark(1)
         loss.backward()
-        mark()
+        mark(2)
         opt.step()
-        mark()
-        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        mark(3)
+        if not marks:
+            return None
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
-    step(sync=True)  # warm-up
+    step()  # warm-up
+    torch.cuda.synchronize()
     sites = sync_sites(step)
     torch.cuda.synchronize()
     print(f"[syncs] {sum(sites.values())} synchronizing calls in one step")
     for site, n in sites.most_common():
         print(f"[syncs]   {n:5d}  {site}")
     torch.cuda.reset_peak_memory_stats(device)
-    parts = [step(sync=True) for _ in range(STEPS)]
+    parts = [step(timed=True) for _ in range(STEPS)]
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     for name, i in (("forward", 0), ("backward", 1), ("optimizer", 2)):
         print(f"[step] {name} {statistics.median(p[i] for p in parts):.2f} ms (median of "
               f"{STEPS}: " + ", ".join(f"{p[i]:.1f}" for p in parts) + ")")
     print(f"[step] a step {statistics.median(sum(p) for p in parts):.2f} ms, peak memory "
           f"{peak:.2f} GiB")
-    device_share(step, "one step", os.path.join(
+    wall_ms, events, prof = traced(step)
+    print(f"[profile] live rays in the step: {profiling.tallies()}")
+    device_share(wall_ms, read_trace(events)[1], prof, "one step", os.path.join(
         args.out, f"profile_frame_{args.scene}_{args.integrator}_grad.txt"))
     return 0
 
@@ -206,10 +316,8 @@ def main(argv=None) -> int:
     if args.grad:
         return grad_main(args)
 
-    from ..accel import Intersector
     from ..config import (BuilderType, BVHConfig, IntegratorConfig, IntegratorType,
                           RenderConfig, SamplerConfig, SamplerType)
-    from ..integrators import bdpt, path
     from ..renderer import Renderer
     from ..scene import builders
 
@@ -247,63 +355,11 @@ def main(argv=None) -> int:
     print(f"[frames] {statistics.median(frame_ms):.2f} ms/spp (median of {FRAMES}): "
           + ", ".join(f"{t:.1f}" for t in frame_ms))
 
-    # 3. synced stage times
-    stages = collections.defaultdict(list)
-
-    def timed(name, fn, live_of):
-        def run(*a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a)
-            torch.cuda.synchronize()
-            stages[name].append(((time.perf_counter() - t0) * 1e3, live_of(*a)))
-            return out
-        return run
-
-    base = renderer.intersector
-    if args.integrator == "path":
-        wrapped = {"_shade": timed("shade", path._shade, lambda *a: int(a[5].active.sum()))}
-        module, closest = path, timed("closest", base.intersect,
-                                      lambda s, r: int(r.active.sum()))
-    else:
-        def none(*a):
-            return 0
-
-        wrapped = {name: timed(stage, getattr(bdpt, name), none) for name, stage in (
-            ("generate_camera_subpath", "camera walk"), ("generate_light_subpath", "light walk"),
-            ("_family_s0", "s=0"), ("_family_s1", "s=1"), ("_family_connect", "s,t>=2"),
-            ("_family_t1", "t=1"), ("_splat", "splat"))}
-        module, closest = bdpt, base.intersect
-    own = {name: getattr(module, name) for name in wrapped}
-    renderer.intersector = Intersector(
-        closest, timed("shadow", base.occluded, lambda s, r: int(r.active.sum())), base.accel)
-    for name, fn in wrapped.items():
-        setattr(module, name, fn)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        renderer.step(1)
-    finally:
-        renderer.intersector = base
-        for name, fn in own.items():
-            setattr(module, name, fn)
-    torch.cuda.synchronize()
-    synced_ms = (time.perf_counter() - t0) * 1e3
-    totals = {k: sum(ms for ms, _ in v) for k, v in stages.items()}
-    print(f"[stages] synced frame {synced_ms:.1f} ms: " + ", ".join(
-        f"{k} {v:.1f} ms" for k, v in totals.items())
-        + f", rest {synced_ms - sum(totals.values()):.1f} ms")
-    if args.integrator == "path":
-        for i in range(len(stages["shade"])):
-            row = ", ".join(f"{k} {stages[k][i][0]:.2f} ms ({stages[k][i][1]} live)"
-                            for k in ("closest", "shade", "shadow") if i < len(stages[k]))
-            print(f"[stages]   bounce {i}: {row}")
-    else:
-        for i, (ms, live) in enumerate(stages["shadow"]):
-            print(f"[stages]   occlusion chunk {i}: {ms:.2f} ms ({live} live shadow rays)")
-
-    # 4. device share over two unsynced frames
-    device_share(lambda: renderer.step(2), "2 frames",
+    # 3. and 4. stages and device share, from one unsynchronised traced frame
+    wall_ms, events, prof = traced(lambda: renderer.step(1))
+    spans, device_events = read_trace(events)
+    print_stages(spans, args.integrator, statistics.median(frame_ms))
+    device_share(wall_ms, device_events, prof, "1 frame",
                  os.path.join(args.out, f"profile_frame_{args.scene}_{args.integrator}.txt"))
     return 0
 

@@ -1,14 +1,19 @@
 """Profiling spans and renderer metrics (counterpart of
 ``mcrt_tpu/utils/profiling.py``).
 
+- program spans: ``span(name)`` is a ``torch.profiler.record_function``
+  range while a profiler records, and a shared no-op context otherwise, so
+  the main path's ``mcrt.*`` spans cost one flag test when no one traces.
+  They open no device op and make no host sync, so a frame launches the
+  same work with tracing on or off;
+- the live-ray counter: ``tally(name, mask)`` keeps a query's ``active``
+  mask while a profiler records, and ``tallies()`` sums them (one sync);
 - host spans: a registry of named, nested spans with per-span count, last,
   average and maximum times and a bounded history (``Profiler``, and the
-  module-level ``profiler``);
-- device time: ``span(..., sync=tensor)`` waits for the tensor's card
-  (``torch.cuda.synchronize``, the counterpart of
-  ``jax.block_until_ready``), and every span is a
-  ``torch.profiler.record_function`` range (the counterpart of
-  ``jax.named_scope``), so it names its work in a ``device_trace``;
+  module-level ``profiler``), each also a ``span`` range;
+- device time: ``Profiler.span(..., sync=tensor)`` waits for the tensor's
+  card (``torch.cuda.synchronize``, the counterpart of
+  ``jax.block_until_ready``);
 - ``device_trace(log_dir)``: a ``torch.profiler`` trace of the block,
   written to ``log_dir`` as a Chrome trace (the counterpart of
   ``jax.profiler.start_trace``);
@@ -24,6 +29,48 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_IDLE = contextlib.nullcontext()
+# masks kept a name before they are folded into one device count: bounds
+# what a long recording holds (a 512x512 frame hands 8 masks of 256 KiB a
+# name, so 32 frames)
+_FOLD = 256
+_tallies: dict[str, list] = {}
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    records, else one shared ``contextlib.nullcontext()``: tracing is on
+    exactly while someone records a trace."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _IDLE
+
+
+def tally(name: str, mask: torch.Tensor):
+    """While a profiler records, keep a reference to ``mask`` (a bool
+    tensor of live lanes) under ``name``; launches nothing.  Outside a
+    recording nothing is kept: the first tally after one drops what
+    ``tallies()`` did not read, so read it before the next query."""
+    if _autograd_profiler._is_profiler_enabled:
+        kept = _tallies.setdefault(name, [])
+        kept.append(mask)
+        if len(kept) >= _FOLD:
+            kept[:] = [torch.stack([m.sum() for m in kept]).sum()]
+    elif _tallies:
+        _tallies.clear()
+
+
+def tallies() -> dict[str, int]:
+    """``{name: the true lanes of every mask tallied under it}``, read with
+    one sync; the tallies are cleared."""
+    names = list(_tallies)
+    if not names:
+        return {}
+    sums = torch.stack([torch.stack([m.sum() for m in _tallies[k]]).sum() for k in names])
+    _tallies.clear()
+    return dict(zip(names, (int(v) for v in sums.tolist())))
 
 
 @dataclass
@@ -50,14 +97,15 @@ class Profiler:
 
     @contextlib.contextmanager
     def span(self, name: str, sync: torch.Tensor | None = None):
-        """Time a host-side span.  Card work is asynchronous: without
-        ``sync`` the span times only the queuing of its work; with a tensor
-        on a card, the span ends when that card has finished its work."""
+        """Time a host-side span, a ``span(name)`` range in a trace.  Card
+        work is asynchronous: without ``sync`` the span times only the
+        queuing of its work; with a tensor on a card, the span ends when
+        that card has finished its work."""
         path = "/".join(self._stack + [name])
         self._stack.append(name)
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with span(name):
                 yield
         finally:
             if sync is not None and sync.is_cuda:
