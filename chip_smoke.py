@@ -1108,6 +1108,7 @@ def main_path_phase(label, scene, camera, device, expect, forbid, frame_phases=(
     _, warm, _ = timed(lambda: renderer.step(1), 1)
     renderer.intersector = base
     rays_per_spp = int(traced)
+    renderer.step(1)  # the shading graphs' capture frame (Renderer's second)
     ms, frame_ms, _ = timed(lambda: renderer.step(1), MAIN_FRAMES)
     sites = sync_sites(lambda: renderer.step(1))
     torch.cuda.synchronize()
@@ -2669,6 +2670,7 @@ def lbvh_phase(scene, camera, device):
     renderer = Renderer(scene, camera, cfg, device=device)
     set_up = time.perf_counter() - t0
     warm, _, _ = timed(lambda: renderer.step(1), 1)
+    renderer.step(1)  # the shading graphs' capture frame
     traverse.reset_stats()
     ms, frame_ms, _ = timed(lambda: renderer.step(1), LBVH_FRAMES)
     st = {k: v // LBVH_FRAMES for k, v in traverse.STATS.items()}

@@ -21,6 +21,15 @@ import torch
 F32_MAX = float(torch.finfo(torch.float32).max)
 
 
+def from_host(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The CPU tensor ``host`` on ``device``: a card gets it by a
+    non-blocking copy from pinned memory, so the host does not wait for the
+    stream."""
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
 def default_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` where the caller names
     one, else the CUDA card.  Without a card it raises rather than run on

@@ -9,9 +9,22 @@ is known.  The bounce loop is a Python loop, written with ``torch.where``
 and without in-place writes, so that autograd differentiates it: inverse
 rendering (``diff/``) runs it with gradients on, the progressive
 ``Renderer`` under ``torch.no_grad()``.
+
+The progressive ``Renderer`` renders its frames inside ``replaying(graphs)``
+with its ``ShadeGraphs``: there, where the wavefront is on a card, the
+sampler is Sobol and autograd is off, each bounce's shading replays as one
+CUDA graph between the two queries, which stay eager, once a wavefront of
+the same scene, lane count, config and seeds has run before (the first
+runs eagerly).  Every other caller (gradients, the sharded
+``render_spp_batch``, BDPT, RANDOM, the CPU) runs the same loop with
+each bounce's shading run as it is called.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -20,7 +33,7 @@ from ..bsdf import uber
 from ..bsdf.materials import fetch_bsdf
 from ..config import IntegratorConfig
 from ..core import math as m
-from ..core.types import Rays, Throughput
+from ..core.types import Rays, TensorRecord, Throughput
 from ..lights import lights as lt
 from ..sampling import rng, samplers as smp
 from ..scene.interaction import compute_interaction, spawn_ray, spawn_shadow_ray
@@ -115,17 +128,235 @@ def trace(scene: Scene, rays: Rays, stream: rng.SampleStream,
           diff=None) -> torch.Tensor:
     """Trace one camera-sample wavefront to completion; returns (N, 3)
     radiance.  ``diff`` (camera-ray differentials) reaches only the primary
-    bounce, as in the JAX package."""
+    bounce, as in the JAX package.  Each bounce's shading goes through a
+    runner: inside ``replaying(graphs)`` the one ``graphs.runner`` picks,
+    which may replay it as a CUDA graph, elsewhere one that runs it as it
+    is called; the result is the same."""
+    graphs = _REPLAYING.get()
+    run = _Eager() if graphs is None else graphs.runner(scene, rays, stream, cfg)
+    query_rays, prev = rays, None
+    for i in range(cfg.max_depth):
+        hit = intersect(scene, query_rays)
+        with span("mcrt.shade"):
+            if i == 0:
+                out = run.shade(0, functools.partial(_first_bounce, scene, cfg, stream),
+                                (hit, rays, diff, stream.pixel, stream.sobol_fold))
+            else:
+                out = run.shade(i, functools.partial(_next_bounce, scene, cfg, i, prev),
+                                (hit, tp.radiance))
+            rays, tp, stream, prev_pdf, prev_p, srays, contrib, nee_ok = out
+            # neither the bounce's inputs nor its state before the NEE outlive
+            # its shading: held on, they would raise a gradient step's peak memory
+            out = prev = None
+            query_rays = run.handed(rays)
+            shadow_rays = run.handed(srays) if cfg.enable_shadows else None
+        vis = nee_ok & ~occluded(scene, shadow_rays) if cfg.enable_shadows else nee_ok
+        tp = tp.replace(radiance=tp.radiance + torch.where(vis[..., None], contrib, 0.0))
+        prev = (rays, tp, stream, prev_pdf, prev_p)
+    return tp.radiance
+
+
+_REPLAYING: contextvars.ContextVar = contextvars.ContextVar("shade_graphs", default=None)
+
+
+@contextlib.contextmanager
+def replaying(graphs: "ShadeGraphs"):
+    """Within the block, this thread's ``trace`` calls run their shading
+    through ``graphs.runner`` (``Renderer.step`` opens it around its
+    frames)."""
+    token = _REPLAYING.set(graphs)
+    try:
+        yield graphs
+    finally:
+        _REPLAYING.reset(token)
+
+
+def _first_bounce(scene, cfg, stream, hit, rays, diff, pixel, fold):
+    """Bounce 0's shading from the camera rays, their differentials and the
+    stream's per-frame tensors."""
     n = rays.n
     tp = Throughput.fresh(n, rays.o.device)
     prev_pdf = torch.ones((n,), dtype=torch.float32, device=rays.o.device)
-    prev_p = rays.o
-    for i in range(cfg.max_depth):
-        hit = intersect(scene, rays)
-        with span("mcrt.shade"):
-            (rays, tp, stream, prev_pdf, prev_p, srays, contrib, nee_ok) = _shade(
-                scene, cfg, i, rays, hit, tp, stream, prev_pdf, prev_p,
-                diff if i == 0 else None)
-        vis = nee_ok & ~occluded(scene, srays) if cfg.enable_shadows else nee_ok
-        tp = tp.replace(radiance=tp.radiance + torch.where(vis[..., None], contrib, 0.0))
-    return tp.radiance
+    stream = stream.replace(pixel=pixel, sobol_fold=fold)
+    return _shade(scene, cfg, 0, rays, hit, tp, stream, prev_pdf, rays.o, diff)
+
+
+def _next_bounce(scene, cfg, i, prev, hit, radiance):
+    """Bounce ``i``'s shading from the previous bounce's ``(rays, tp,
+    stream, prev_pdf, prev_p)``, with ``radiance`` (the previous bounce's
+    NEE added) as the throughput's radiance."""
+    rays, tp, stream, prev_pdf, prev_p = prev
+    return _shade(scene, cfg, i, rays, hit, tp.replace(radiance=radiance), stream,
+                  prev_pdf, prev_p)
+
+
+def _map(x, f):
+    """``x``, a nest of tuples, records and tensors, with each tensor ``t``
+    replaced by ``f(t)``, in ``_tensors``' order."""
+    if isinstance(x, torch.Tensor):
+        return f(x)
+    if isinstance(x, TensorRecord):
+        return dataclasses.replace(x, **{fl.name: _map(getattr(x, fl.name), f)
+                                         for fl in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        return tuple(_map(v, f) for v in x)
+    return x
+
+
+def _tensors(x) -> list[torch.Tensor]:
+    """The tensors of a nest of tuples, records and tensors, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, TensorRecord):
+        return [t for fl in dataclasses.fields(x) for t in _tensors(getattr(x, fl.name))]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+class _Eager:
+    """``trace``'s runner off the graphs' path: a bounce's shading runs as
+    it is called, and its rays go to the queries as they are.  ``graphs``,
+    where given, counts the bounces."""
+
+    def __init__(self, graphs: "ShadeGraphs | None" = None):
+        self.graphs = graphs
+
+    def shade(self, i: int, fn, fresh):
+        if self.graphs is not None:
+            self.graphs.eager_bounces += 1
+        return fn(*fresh)
+
+    @staticmethod
+    def handed(rays: Rays) -> Rays:
+        return rays
+
+
+class ShadeGraphs:
+    """CUDA graphs of ``trace``'s shading, one per bounce index (the index
+    decides the primary bounce's terms, the camera differentials and
+    Russian roulette), owned by the progressive ``Renderer``, and the
+    runner that replays them.
+
+    They hold the key of the wavefronts they were captured for: the scene,
+    the number of lanes, the integrator config and the stream's seeds.  A
+    wavefront of another key drops them and runs eagerly, so a scene that
+    changes every frame (an animation, an edit in the viewer) never pays a
+    capture; the next wavefront of the same key captures each bounce on
+    its first use, after one eager warm-up on the capture stream, and every
+    later one replays them.  A replay follows the bounce's closest-hit
+    query: the hit, and at bounce 0 the camera rays, their differentials
+    and the stream's pixels and Sobol fold table (the frame's only inputs),
+    at a later bounce the radiance with the previous bounce's NEE added,
+    are copied into the graph's static inputs (one copy shared by the
+    bounces past the first), and the graph reads the previous bounce's
+    outputs where they lie.  Outputs alternate between two sets of lane
+    buffers by the bounce's parity, so the graphs hold two bounces' state
+    whatever the depth.  The graphs share one memory pool and replay in
+    the order they were captured.  ``clear`` drops them
+    (``Renderer.update_scene`` clears), so a graph never reads a freed
+    tensor.
+
+    ``captures``, ``replays`` and ``eager_bounces`` (bounces run eagerly
+    by a ``trace`` inside ``replaying`` the graphs) are host counters."""
+
+    device_type = "cuda"  # the device ``_capture`` captures on
+
+    def __init__(self):
+        self.captures = self.replays = self.eager_bounces = 0
+        self.clear()
+
+    def clear(self):
+        self._key = None
+        self._bounces = []
+        self._sets = [None, None]
+        self._pool = self._stream = None
+
+    def stats(self) -> dict[str, int]:
+        return {"captures": self.captures, "replays": self.replays,
+                "eager_bounces": self.eager_bounces}
+
+    def engages(self, rays: Rays, stream: rng.SampleStream) -> bool:
+        """Graphs replay a Sobol wavefront on a card with autograd off.
+        RANDOM draws are keyed by host integers of the frame, which a graph
+        would keep from its capture, and autograd needs the eager ops."""
+        return (rays.o.device.type == self.device_type and stream.kind == 1
+                and not torch.is_grad_enabled())
+
+    def runner(self, scene: Scene, rays: Rays, stream: rng.SampleStream,
+               cfg: IntegratorConfig):
+        """The runner of a ``trace`` of ``rays``: these graphs where they
+        engage and hold the wavefront's key, else an eager runner (which
+        counts its bounces).  A new key drops the graphs and is held for
+        the next wavefront."""
+        if not self.engages(rays, stream):
+            return _Eager(self)
+        key = (rays.n, cfg, stream.seed, stream.scramble, stream.row0)
+        if self._key is None or self._key[0] is not scene or self._key[1:] != key:
+            self.clear()
+            self._key = (scene, *key)
+            return _Eager(self)
+        return self
+
+    def shade(self, i: int, fn, fresh):
+        """Bounce ``i``: ``fresh`` copied into its graph's static inputs and
+        the graph replayed (captured first, on the bounce's first use, with
+        ``fn(*inputs)`` as its body); returns the graph's outputs, which
+        the replay of bounce ``i + 2`` rewrites."""
+        if i == len(self._bounces):
+            self._bounces.append(self._capture_bounce(i, fn, fresh))
+            self.captures += 1
+        static, replay, out = self._bounces[i]
+        for dst, src in zip(_tensors(static), _tensors(fresh), strict=True):
+            dst.copy_(src)
+        replay()
+        self.replays += 1
+        return out
+
+    @staticmethod
+    def handed(rays: Rays) -> Rays:
+        """``rays`` for a query, with a fresh ``active`` mask: the live-ray
+        tally and a caller's wrapper keep the mask past the frame, and a
+        graph's output is rewritten by a later replay."""
+        return rays.replace(active=rays.active.clone())
+
+    def _capture_bounce(self, i: int, fn, fresh):
+        """(static inputs, replay, outputs) of bounce ``i``'s graph."""
+        static = self._bounces[1][0] if i > 1 else _map(fresh, torch.Tensor.clone)
+        replay, out = self._capture(lambda: fn(*static), lambda o: self._keep(i % 2, o),
+                                    _tensors(static)[0].device)
+        return static, replay, out
+
+    def _keep(self, parity: int, out):
+        """``out`` with its tensors copied into output set ``parity`` (made
+        from them on first use) and its other values its own."""
+        kept = self._sets[parity]
+        if kept is None:
+            kept = self._sets[parity] = [t.clone() for t in _tensors(out)]
+        else:
+            for dst, src in zip(kept, _tensors(out), strict=True):
+                dst.copy_(src)
+        slots = iter(kept)
+        return _map(out, lambda _: next(slots))
+
+    def _capture(self, body, keep, device: torch.device):
+        """(replay, outputs) of ``keep(body())`` captured as a CUDA graph on
+        ``device``, after one eager ``body()`` on the capture stream, which
+        keeps lazy initialisation out of the capture: ``torch.cuda.graph``'s
+        steps, without its emptying of the allocator's caches before each
+        capture, which made a 512x512 capture frame up to 0.8 s longer over
+        its 8 captures."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device)
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self._stream):
+            body()
+            torch.cuda.synchronize(device)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self._pool)
+            try:
+                out = keep(body())
+            finally:
+                graph.capture_end()
+        return graph.replay, out

@@ -10,7 +10,12 @@ are differentiable with respect to the scene's tensors (inverse rendering,
 accumulator, and ``Renderer`` owns the scene, the intersector and the
 accumulator on one device; its ``display_image`` applies the optional
 denoise and tone map.  PyTorch runs eagerly, so where the JAX package
-jits one program per frame this is a Python loop over the bounces.
+jits one program per frame this is a Python loop over the bounces.  The
+``Renderer``'s own frames on a card, under the path tracer with the Sobol
+sampler, replay each bounce's shading as a CUDA graph that it owns
+(``integrators.path.ShadeGraphs``) from the second frame of a scene on;
+the queries between them, a scene's first frame, and every other caller
+of ``render_sample``, run eagerly.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 from .accel import Intersector, build_intersector
 from .camera.pinhole import PinholeCamera, pixel_uv
 from .config import IntegratorType, RenderConfig
-from .core.types import Rays, default_device
+from .core.types import Rays, default_device, from_host
 from .film.accumulate import Accumulator, accumulate
 from .film.denoise import bilateral
 from .film.tonemap import reinhard
@@ -57,11 +62,7 @@ def frame_jitter(frame: int, device=None) -> torch.Tensor:
     half = np.float32(0.5)
     jit = np.asarray([_radical_inverse(f + 1, 2) - half,
                       _radical_inverse(f + 1, 3) - half], np.float32)
-    if device.type == "cuda":
-        # pinned memory and a non-blocking copy: a copy from pageable memory
-        # would make the host wait for the stream once a frame
-        return torch.from_numpy(jit).pin_memory().to(device, non_blocking=True)
-    return torch.from_numpy(jit).to(device)
+    return from_host(torch.from_numpy(jit), device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -164,7 +165,9 @@ def render_frame_fn(scene: Scene, camera: PinholeCamera, accum: Accumulator,
 class Renderer:
     """Host-side orchestrator: owns the scene and camera on ``device`` (the
     CUDA card unless the caller names another), the intersector (built
-    once) and the accumulator."""
+    once), the accumulator and the shading's CUDA graphs
+    (``path_integrator.ShadeGraphs``, which the path tracer replays inside
+    ``step``)."""
 
     def __init__(self, scene: Scene, camera: PinholeCamera, cfg: RenderConfig,
                  device=None):
@@ -175,6 +178,14 @@ class Renderer:
         self.intersector = build_intersector(self.scene, cfg)
         self.accum = Accumulator.zeros(cfg.width, cfg.height, self.device)
         self._render_start = None
+        self._shade_graphs = path_integrator.ShadeGraphs()
+
+    def shade_graph_stats(self) -> dict[str, int]:
+        """The shading graphs' host counters: ``captures``, ``replays`` and
+        ``eager_bounces`` (bounces of this renderer's frames that ran
+        eagerly: off a card, under RANDOM, or in the first frame of a scene
+        or config)."""
+        return self._shade_graphs.stats()
 
     def reset(self):
         """Accumulation reset on a camera move or scene edit."""
@@ -193,7 +204,9 @@ class Renderer:
         other edit rebuilds on the host.  A refit runs on the scene's
         device and makes no host sync.  ``rebuild_accel=False`` keeps the
         intersector as it is, for an edit that leaves the geometry alone
-        (materials, lights)."""
+        (materials, lights).  The shading graphs are dropped: the next frame
+        runs eagerly, and they are captured anew if the frame after it
+        renders the same scene."""
         from .accel import blocked_intersector, two_level_intersector
         from .accel.blocked import BlockedAccel, refit_blocked
         from .accel.two_level import TwoLevelAccel, refit_two_level_scene
@@ -210,6 +223,7 @@ class Renderer:
                 self.intersector = two_level_intersector(refit_two_level_scene(acc, scene))
             else:
                 self.intersector = build_intersector(scene, self.cfg)
+        self._shade_graphs.clear()
         self.reset()
 
     def update_camera(self, camera: PinholeCamera):
@@ -217,7 +231,7 @@ class Renderer:
         self.reset()
 
     def step(self, n_frames: int = 1) -> Accumulator:
-        with torch.no_grad():
+        with torch.no_grad(), path_integrator.replaying(self._shade_graphs):
             for _ in range(n_frames):
                 if self.stopped():
                     break

@@ -3,7 +3,10 @@
 A ``SampleStream`` carries (seed, frame, next dimension, pixel ids) and every
 draw advances the dimension, so one interface backs both samplers:
 
-- SOBOL: scrambled Sobol', bit-exact with the JAX package.
+- SOBOL: scrambled Sobol', bit-exact with the JAX package.  The stream
+  carries its sample's ``fold_table`` (computed on the host and copied to
+  the pixels' device once a stream), and a draw gathers its dimensions from
+  it, so the device work of a draw does not depend on the sample index.
 - RANDOM: ``jax.random.uniform`` under the partitionable threefry, bit-exact
   with the JAX package.  The key, ``fold_in(fold_in(PRNGKey(seed), frame),
   dim)``, is computed on the host in Python integers (the stream's seed,
@@ -21,7 +24,7 @@ import torch
 
 from ..config import SamplerConfig, SamplerType
 from ..core.types import TensorRecord
-from .sobol import M32, sobol_matrices, sobol_sample_scrambled
+from .sobol import M32, fold_table, require_shipped, sobol_matrices, sobol_scrambled
 
 
 @dataclass(frozen=True)
@@ -31,7 +34,8 @@ class SampleStream(TensorRecord):
     ``row0`` is the wavefront row of the first lane: a rays-sharded render
     traces rows ``row0 ..`` of the full wavefront, and RANDOM's counters
     run over the full wavefront's rows, as the JAX package's global
-    arrays do under a mesh."""
+    arrays do under a mesh.  ``sobol_fold`` is ``sobol.fold_table`` at
+    ``index``."""
 
     seed: int
     index: int
@@ -41,6 +45,7 @@ class SampleStream(TensorRecord):
     kind: int  # 0 = random, 1 = sobol
     sobol_mats: torch.Tensor | None = None
     row0: int = 0
+    sobol_fold: torch.Tensor | None = None  # (D,) int64
 
     def advance(self, k: int) -> "SampleStream":
         return dataclasses.replace(self, dim=self.dim + k)
@@ -48,15 +53,23 @@ class SampleStream(TensorRecord):
 
 def make_stream(cfg: SamplerConfig, frame: int, pixel_ids: torch.Tensor,
                 sobol_mats: torch.Tensor | None = None, row0: int = 0) -> SampleStream:
+    """The stream of sample ``frame`` for ``pixel_ids``.  ``sobol_mats``,
+    where given, must be ``sobol_matrices()`` of its device (``ValueError``
+    otherwise): the fold table is taken from the shipped direction numbers'
+    host copy, and other matrices would have to be read back from the card."""
     kind = 1 if cfg.type == SamplerType.SOBOL else 0
-    if kind == 1 and sobol_mats is None:
-        sobol_mats = sobol_matrices(pixel_ids.device)
+    fold = None
+    if kind == 1:
+        if sobol_mats is None:
+            sobol_mats = sobol_matrices(pixel_ids.device)
+        require_shipped(sobol_mats)
+        fold = fold_table(frame, pixel_ids.device)
     return SampleStream(
         seed=int(cfg.seed), index=int(frame), dim=0,
         pixel=pixel_ids.to(torch.int32),
         # frame-independent: each pixel walks ONE scrambled sequence
         scramble=(int(cfg.seed) * 2654435761) % (1 << 32),
-        kind=kind, sobol_mats=sobol_mats, row0=int(row0),
+        kind=kind, sobol_mats=sobol_mats, row0=int(row0), sobol_fold=fold,
     )
 
 
@@ -106,8 +119,7 @@ def _random_bits(stream: SampleStream, n_dims: int) -> torch.Tensor:
 def _sobol_bits(stream: SampleStream, n_dims: int) -> torch.Tensor:
     dims = torch.arange(stream.dim, stream.dim + n_dims, dtype=torch.int64,
                         device=stream.pixel.device)
-    return sobol_sample_scrambled(stream.sobol_mats, stream.index, dims,
-                                  stream.pixel, stream.scramble)
+    return sobol_scrambled(stream.sobol_fold, dims, stream.pixel, stream.scramble)
 
 
 def _draw(stream: SampleStream, n_dims: int):

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.math import inverse3
-from ..core.types import TensorRecord
+from ..core.types import TensorRecord, from_host
 from .scene import LIGHT_MESH, Lights, Scene, pack_face_attrs, take_clip
 
 
@@ -34,11 +34,8 @@ def _on(device, m) -> torch.Tensor:
     card."""
     if isinstance(m, torch.Tensor) and m.device == device:
         return m.to(torch.float32)
-    host = torch.as_tensor(np.asarray(m.cpu() if isinstance(m, torch.Tensor) else m,
-                                      np.float32))
-    if device.type == "cuda":
-        return host.pin_memory().to(device, non_blocking=True)
-    return host.to(device)
+    return from_host(torch.as_tensor(np.asarray(m.cpu() if isinstance(m, torch.Tensor) else m,
+                                                np.float32)), device)
 
 
 def _normal_matrices(rot: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,8 @@ frame:
    busy time (the union of every kernel, copy and fill interval on the
    card) and the busy share, and the kernels with the most device time.
    The full table goes to ``<out>/profile_frame_<SCENE>_<INTEGRATOR>.txt``.
+5. The renderer's shading graphs: ``Renderer.shade_graph_stats()`` after
+   every frame above (captures, replays, bounces run eagerly).
 
 With ``--grad`` it profiles an inverse-rendering step instead, as
 ``chip_smoke.py``'s ``[grad]`` phase runs it (``[bdpt_grad]`` under
@@ -361,6 +363,7 @@ def main(argv=None) -> int:
     print_stages(spans, args.integrator, statistics.median(frame_ms))
     device_share(wall_ms, device_events, prof, "1 frame",
                  os.path.join(args.out, f"profile_frame_{args.scene}_{args.integrator}.txt"))
+    print(f"[graphs] {renderer.shade_graph_stats()}")
     return 0
 
 

@@ -522,6 +522,51 @@ def test_cuda_render_matches_cpu_render(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("start", [1024, 1023], ids=["one_bit", "ten_bits"])
+@pytest.mark.parametrize("builder", [lambda device: sphere_field(subdiv=2, device=device),
+                                     lambda device: textured_hall(device=device)],
+                         ids=["sphere_field", "textured_hall"])
+def test_graphed_frames_equal_eager_frames(cuda_device, builder, start):
+    """Four ``Renderer`` frames (64x64, depth 8, Sobol), the first eager
+    and the next three replaying their shading as CUDA graphs, against four
+    eager frames (``render_frame_fn`` without the graphs) from the same
+    start sample: the films equal bit for bit after every frame, at start
+    samples of one and of ten set bits, with 8 captures and 24 replays (the
+    capture frame replays too) and 8 eager bounces, and the frames after
+    the capture frame make no host sync.  After ``update_scene`` (a shape
+    moved, the accel refitted) the first frame runs eagerly without a sync,
+    the graphs are captured anew on the next, and the frames stay equal."""
+    from mcrt_tpu_torch import Renderer
+    from mcrt_tpu_torch.config import IntegratorConfig, RenderConfig, SamplerConfig, SamplerType
+    from mcrt_tpu_torch.renderer import render_frame_fn
+
+    cfg = RenderConfig(width=64, height=64, sampler=SamplerConfig(type=SamplerType.SOBOL),
+                       integrator=IntegratorConfig(max_depth=8))
+    r = Renderer(*builder(cuda_device), cfg, device=cuda_device)
+    for captures in (8, 16):
+        r.reset()
+        r.accum = r.accum.replace(frame=start)
+        eager = r.accum
+        for k in range(4):
+            torch.cuda.synchronize()
+            # syncs allowed: the capture frame, and the Renderer's first frame
+            # (its pixel order and Sobol matrices are uploaded once)
+            torch.cuda.set_sync_debug_mode("default" if k == 1 or (k, captures) == (0, 8)
+                                           else "error")
+            try:
+                r.step(1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            with torch.no_grad():
+                eager = render_frame_fn(r.scene, r.camera, eager, eager.frame, cfg, r.intersector)
+            assert torch.equal(r.accum.weighted, eager.weighted), (captures, k)
+        assert r.shade_graph_stats() == {"captures": captures, "replays": 3 * captures,
+                                         "eager_bounces": captures}
+        assert bool(r.accum.weighted.abs().sum() > 0)
+        r.update_scene(_moved(r.scene, 1))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("builder, view, size, spp, float_texels", [
     (cornell_box, "material_params", 16, 16, False),
     (cornell_box, "light_params", 16, 16, False),

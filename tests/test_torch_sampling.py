@@ -56,6 +56,50 @@ def test_sobol_samples_bit_equal(frame, seed):
     np.testing.assert_array_equal(t.view(np.int32), j.view(np.int32))
 
 
+def _per_bit_fold(mats: torch.Tensor, index: int, dims: torch.Tensor) -> torch.Tensor:
+    """The fold as the port drew it before the per-frame table: one XOR of
+    a dimension's direction number a set bit of the index, on the device."""
+    d_mats = mats[dims.clamp(0, mats.shape[0] - 1)]
+    x = torch.zeros(dims.shape, dtype=torch.int64)
+    for b in range(32):
+        if (index >> b) & 1:
+            x = x ^ d_mats[:, b]
+    return x
+
+
+_FOLD_INDICES = ([0, 1] + [2**k for k in range(1, 32)] + [2**32 - 1]
+                 + np.random.default_rng(20).integers(0, 2**32, 4).tolist())
+
+
+@pytest.mark.parametrize("index", _FOLD_INDICES)
+def test_fold_table_draws_equal_per_bit_fold_and_jax(index):
+    """Sample ``index``'s fold table (taken on the host once a stream) over
+    dimensions 0-255 equals the per-bit fold, and the draws gathered from
+    it equal the JAX package's, bit for bit: a stream's three draws against
+    ``jax``'s at dimension 0, and every dimension at once through
+    ``sobol_sample_scrambled``."""
+    pixels = _pixels()[:16]
+    mats = tsobol.sobol_matrices(device="cpu")
+    dims = torch.arange(256)
+    table = tsobol.fold_table(index, "cpu")
+    assert table.shape == (256,) and table.dtype == torch.int64
+    assert torch.equal(table, _per_bit_fold(mats, index, dims))
+    scramble = 12345 * 2654435761 % (1 << 32)
+    j = np.asarray(jsobol.sobol_sample_scrambled(
+        jsobol.sobol_matrices(), jnp.asarray(np.uint32(index)),
+        jnp.asarray(dims.numpy(), jnp.int32), jnp.asarray(pixels),
+        jnp.asarray(np.uint32(scramble))))
+    t = tsobol.sobol_scrambled(table, dims, torch.from_numpy(pixels), scramble).numpy()
+    np.testing.assert_array_equal(t.view(np.int32), j.view(np.int32))
+    ts = trng.make_stream(SamplerConfig(type=SamplerType.SOBOL, seed=12345), index,
+                          torch.from_numpy(pixels))
+    assert torch.equal(ts.sobol_fold, table)
+    for k, draw in ((0, trng.next_1d), (1, trng.next_2d), (3, trng.next_3d)):
+        u, ts = draw(ts)
+        u = u.reshape(len(pixels), -1).numpy()
+        np.testing.assert_array_equal(u.view(np.int32), j[:, k:k + u.shape[1]].view(np.int32))
+
+
 @pytest.mark.parametrize("frame", FRAMES)
 def test_sobol_stream_draws_bit_equal(frame):
     """The 1D/2D/3D draw sequence of one bounce, twice over."""
@@ -125,3 +169,23 @@ def test_random_stream_distribution():
     # independent dimensions: no correlation between consecutive draws
     corr = np.corrcoef(tu.numpy()[:, 0], nxt.numpy()[:, 0])[0, 1]
     assert abs(corr) < 4.0 / np.sqrt(n)
+
+
+@pytest.mark.parametrize("entry", ["make_stream", "sobol_sample_scrambled"])
+def test_draws_take_the_shipped_direction_numbers_only(entry):
+    """Both entries that take direction numbers accept the shipped ones and
+    refuse others (an equal copy among them): the fold is taken from the
+    shipped numbers' host copy, and a caller's own on a card would have to
+    be read back, a host sync."""
+    pixels, dims = torch.arange(8), torch.arange(4)
+    shipped = tsobol.sobol_matrices(device="cpu")
+    cfg = SamplerConfig(type=SamplerType.SOBOL, seed=3)
+
+    def draw(mats):
+        if entry == "make_stream":
+            return trng.next_3d(trng.make_stream(cfg, 5, pixels, sobol_mats=mats))[0]
+        return tsobol.sobol_sample_scrambled(mats, 5, dims, pixels, 3)
+
+    assert torch.isfinite(draw(shipped)).all()
+    with pytest.raises(ValueError, match="shipped direction numbers"):
+        draw(shipped.clone())
