@@ -16,7 +16,8 @@ The strategy tables are static Python lists, so every gather of endpoint
 vertices is a static slice and the balance-heuristic MIS weights come from
 one masked ratio walk over the vertex axis shared by a family's strategies.
 The shadow rays of all families are staged, then resolved by occlusion
-queries of at most ``OCC_CHUNK_RAYS`` rays each.
+queries of at most ``OCC_CHUNK_RAYS`` rays each, inside the
+``mcrt.bdpt.occlusion`` span.
 
 A walk builds each vertex as its own (N, ...) record, replaced out of
 place as later steps fill its fields in, and stacks the records into
@@ -54,7 +55,7 @@ from ..sampling import rng
 from ..scene.interaction import compute_interaction, spawn_ray, spawn_shadow_ray
 from ..scene.scene import (LIGHT_DIRECTIONAL, LIGHT_DISK, LIGHT_MESH, LIGHT_POINT,
                            Scene, take_clip)
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 VT_CAMERA = 0
 VT_LIGHT = 1
@@ -606,9 +607,13 @@ def _rays_map(fn, *rays: Rays) -> Rays:
 
 def _chunked_occlusion(scene, occluded, srays: Rays, n: int) -> torch.Tensor:
     """Resolve an (S, N) table of shadow rays by occlusion queries of at
-    most ``OCC_CHUNK_RAYS`` rays each.  Returns blocked (S, N) bool."""
+    most ``OCC_CHUNK_RAYS`` rays each.  Returns blocked (S, N) bool.  Under
+    a profiler it counts the staged rays and the chunk queries (host
+    integers; the live rays are the queries' ``rays.occluded`` tally)."""
     S = srays.o.shape[0]
     per = max(1, OCC_CHUNK_RAYS // max(n, 1))
+    count("bdpt.staged_rays", S * n)
+    count("bdpt.occlusion_chunks", -(-S // per))
     outs = []
     for lo in range(0, S, per):
         hi = min(S, lo + per)
@@ -683,8 +688,9 @@ def trace(scene: Scene, camera: PinholeCamera, rays: Rays, stream: rng.SampleStr
                                      n, film, slot_of_pixel))
 
     if blocks:
-        all_rays = _rays_map(lambda *xs: torch.cat(xs, dim=0), *[b[0] for b in blocks])
-        blocked = _chunked_occlusion(scene, occluded, all_rays, n)
+        with span("mcrt.bdpt.occlusion"):
+            all_rays = _rays_map(lambda *xs: torch.cat(xs, dim=0), *[b[0] for b in blocks])
+            blocked = _chunked_occlusion(scene, occluded, all_rays, n)
         row = 0
         for srays, contrib, ok, flat in blocks:
             S = srays.o.shape[0]

@@ -27,9 +27,12 @@ frame:
    closest-hit and shadow queries (``mcrt.query.closest`` /
    ``.occluded``), with the device time of the work launched inside each;
    under BDPT the same for the two walks, the four strategy families, the
-   t=1 splat (``mcrt.bdpt.*``) and each occlusion chunk.  The live rays
-   come from ``profiling.tallies()``, and ``RenderMetrics``' rays/s puts
-   them over stage 2's median frame.
+   t=1 splat, the staged occlusion (``mcrt.bdpt.*``) and each occlusion
+   chunk, then the shadow rays staged, live and the chunk queries that
+   took them.  The live rays come from ``profiling.tallies()``, the
+   staged rays and chunks from ``profiling.counts()``, and
+   ``RenderMetrics``' rays/s puts the live rays over stage 2's median
+   frame.
 4. Device share, from the same trace: the frame's wall time, its device
    busy time (the union of every kernel, copy and fill interval on the
    card) and the busy share, and the kernels with the most device time.
@@ -207,6 +210,8 @@ def stage_lines(spans, integrator: str) -> list:
         for k in BDPT_STAGES:
             for row in spans.get(f"mcrt.bdpt.{k}", []):
                 lines.append(cell(k, row))
+        for row in spans.get("mcrt.bdpt.occlusion", []):
+            lines.append(cell("occlusion (staging and chunks)", row))
         for i, row in enumerate(spans.get("mcrt.query.occluded", [])):
             lines.append(cell(f"occlusion chunk {i}", row))
     for name in sorted(spans):
@@ -217,13 +222,19 @@ def stage_lines(spans, integrator: str) -> list:
 
 
 def print_stages(spans, integrator, frame_ms):
-    """Stage 3: ``stage_lines``, the live rays the queries tallied, and
+    """Stage 3: ``stage_lines``, under BDPT the shadow rays staged, live and
+    the chunk queries, the live rays the queries tallied, and
     ``RenderMetrics``' rays/s over a frame of ``frame_ms``."""
     from ..utils import profiling
 
     for line in stage_lines(spans, integrator):
         print(f"[stages] {line}")
     live = profiling.tallies()
+    if integrator == "bdpt":
+        n = profiling.counts()
+        print(f"[stages] shadow rays: {n.get('bdpt.staged_rays', 0)} staged, "
+              f"{live.get('rays.occluded', 0)} live, in "
+              f"{n.get('bdpt.occlusion_chunks', 0)} chunk queries")
     rays = profiling.RenderMetrics(rays_traced=float(sum(live.values())), samples=1,
                                    render_s=frame_ms / 1e3)
     print(f"[stages] live rays {live}; {rays.rays_per_sec() / 1e6:.1f} Mrays/s at "

@@ -8,6 +8,9 @@
   same work with tracing on or off;
 - the live-ray counter: ``tally(name, mask)`` keeps a query's ``active``
   mask while a profiler records, and ``tallies()`` sums them (one sync);
+- host counts: ``count(name, value)`` keeps a host integer while a profiler
+  records, the last one set a name (BDPT's staged shadow rays and chunk
+  queries of the last traced frame), and ``counts()`` reads them;
 - host spans: a registry of named, nested spans with per-span count, last,
   average and maximum times and a bounded history (``Profiler``, and the
   module-level ``profiler``), each also a ``span`` range;
@@ -37,6 +40,7 @@ _IDLE = contextlib.nullcontext()
 # name, so 32 frames)
 _FOLD = 256
 _tallies: dict[str, list] = {}
+_counts: dict[str, int] = {}
 
 
 def span(name: str):
@@ -71,6 +75,21 @@ def tallies() -> dict[str, int]:
     sums = torch.stack([torch.stack([m.sum() for m in _tallies[k]]).sum() for k in names])
     _tallies.clear()
     return dict(zip(names, (int(v) for v in sums.tolist())))
+
+
+def count(name: str, value: int):
+    """While a profiler records, keep the host integer ``value`` under
+    ``name``, replacing the one kept before; launches nothing and reads
+    nothing from a device."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counts[name] = int(value)
+
+
+def counts() -> dict[str, int]:
+    """``{name: the last value counted under it}``; cleared once read."""
+    out = dict(_counts)
+    _counts.clear()
+    return out
 
 
 @dataclass

@@ -136,6 +136,38 @@ def test_bdpt_step_opens_the_seven_stage_spans():
                    "mcrt.bdpt.light_walk")
 
 
+def test_bdpt_occlusion_span_holds_the_chunked_queries():
+    """The staging and the chunked occlusion queries lie in one
+    ``mcrt.bdpt.occlusion`` span a frame, and the host count of the staged
+    shadow rays is the staged table's size: every strategy that takes a
+    shadow ray, a ray a lane."""
+    from mcrt_tpu_torch.integrators import bdpt
+
+    r = _renderer("cornell_box", "BDPT")
+    r.step(1)
+    profiling.counts()
+    spans = _spans(lambda: r.step(1))
+    live = profiling.tallies()
+    counts = Counter(n for n, _, _ in spans)
+    assert counts["mcrt.bdpt.occlusion"] == 1
+    assert _inside(spans, "mcrt.bdpt.occlusion", "mcrt.frame")
+    assert counts["mcrt.query.occluded"] >= 1
+    assert _inside(spans, "mcrt.query.occluded", "mcrt.bdpt.occlusion")
+    _, s1, conn, t1 = bdpt.strategy_pairs(DEPTH)
+    staged = profiling.counts()
+    assert staged["bdpt.staged_rays"] == (len(s1) + len(conn) + len(t1)) * SIZE * SIZE
+    assert staged["bdpt.occlusion_chunks"] == counts["mcrt.query.occluded"]
+    assert 0 < live["rays.occluded"] <= staged["bdpt.staged_rays"]
+    assert profiling.counts() == {}  # cleared once read
+
+
+def test_bdpt_counts_nothing_without_a_profiler():
+    r = _renderer("cornell_box", "BDPT")
+    profiling.counts()
+    r.step(1)
+    assert profiling.counts() == {}
+
+
 def test_render_spp_batch_without_a_mesh_opens_the_camera():
     scene, camera = builders.cornell_box(device="cpu")
     cfg = _cfg()
