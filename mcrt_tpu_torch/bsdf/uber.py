@@ -33,6 +33,15 @@ LOBE_PASSTHROUGH = 4
 U_COND = 5
 U_BLEND = 6
 
+# The lobe pick reads the 5-bit code of a lane's lobe masks (bit k: lobe k is
+# present) in two int32 tables, so it takes no scan over the masks: entry b
+# of _POPCOUNT is the number of lobes code b holds, entry 5 b + c of
+# _NTH_LOBE the index of its c-th lobe from 0 (0 where it has no c-th lobe).
+_LOBE_BITS = tuple(1 << k for k in range(N_LOBES))
+_POPCOUNT = tuple(b.bit_count() for b in range(1 << N_LOBES))
+_NTH_LOBE = tuple(([k for k in range(N_LOBES) if b >> k & 1] + [0] * N_LOBES)[c]
+                  for b in range(1 << N_LOBES) for c in range(N_LOBES))
+
 
 @dataclass
 class UberBSDF(TensorRecord):
@@ -133,6 +142,31 @@ def pdf(bsdf: UberBSDF, wo: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
     return p / num
 
 
+def lobe_code(msk: torch.Tensor) -> torch.Tensor:
+    """(N,) int32: the (N, 5) lobe masks as a 5-bit code, bit k for lobe k."""
+    bits = device_constant(_LOBE_BITS, msk.device, torch.int32)
+    return torch.sum(msk * bits, dim=-1, dtype=torch.int32)
+
+
+def nth_lobe(code: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(N,) int32: the index of each code's ``c``-th lobe, counting from 0;
+    0 where it has none, as where ``c`` is -1."""
+    # 5 code + c is -1 only for code 0 and c = -1: clamped onto entry 0, a 0
+    index = torch.add(c, code, alpha=N_LOBES).clamp_min_(0)
+    return device_constant(_NTH_LOBE, code.device, torch.int32).index_select(0, index)
+
+
+def pick_lobe(msk: torch.Tensor, u: torch.Tensor):
+    """One lobe a lane, uniform among the present ones of the (N, 5) masks
+    ``msk`` by ``u`` in [0, 1): (lobe, the number of lobes present as int32,
+    the same as float32 and at least 1).  A lane with no lobe picks lobe 0."""
+    code = lobe_code(msk)
+    num_i = device_constant(_POPCOUNT, code.device, torch.int32).index_select(0, code)
+    num = torch.clamp_min(num_i, 1).to(torch.float32)
+    c = torch.minimum((u * num).to(torch.int32), num_i - 1)
+    return nth_lobe(code, c), num_i, num
+
+
 def sample(bsdf: UberBSDF, wo: torch.Tensor, u3: torch.Tensor,
            detach: bool = True) -> BSDFSample:
     """Sample the lobe mixture.  u3[..., 0] picks the lobe (and is
@@ -140,14 +174,7 @@ def sample(bsdf: UberBSDF, wo: torch.Tensor, u3: torch.Tensor,
     ``detach`` the sampled ``wi`` and the non-delta pdf are cut from the
     graph (the JAX package's ``stop_gradient``), so only ``f`` carries
     parameter gradients."""
-    msk = bsdf.lobe_masks()
-    num_i = bsdf.num_lobes()
-    num = torch.clamp_min(num_i, 1).to(torch.float32)
-    c = torch.minimum((u3[..., 0] * num).to(torch.int32), num_i - 1)
-    mski = msk.to(torch.int32)
-    rank = torch.cumsum(mski, dim=-1) - mski
-    chosen = msk & (rank == c[..., None])
-    lobe = torch.argmax(chosen.to(torch.int32), dim=-1)  # first True (0 if none)
+    lobe, num_i, num = pick_lobe(bsdf.lobe_masks(), u3[..., 0])
     # every lobe samples its direction from the two fresh uniforms
     u2b = torch.stack([u3[..., 1], u3[..., 2]], dim=-1)
 

@@ -43,10 +43,11 @@ def default_device(device=None) -> torch.device:
 
 
 @functools.lru_cache(maxsize=64)
-def device_constant(values: tuple, device: torch.device) -> torch.Tensor:
-    """A small float32 constant on ``device``, copied once and cached.
-    Callers must not write to it."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
+def device_constant(values: tuple, device: torch.device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A small constant (a table) of ``dtype`` on ``device``, copied once and
+    cached.  Callers must not write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _move(v, device):

@@ -188,6 +188,50 @@ def test_uber_evaluate_pdf_sample_match_jax(zoo):
         _close(getattr(ts, name), getattr(js, name), name)
 
 
+def _scan_pick(msk, u):
+    """The lobe pick as a prefix count of the masks: a lane's c-th present
+    lobe is the first whose rank (present lobes before it) is c."""
+    num_i = torch.sum(msk.to(torch.int32), dim=-1)
+    num = torch.clamp_min(num_i, 1).to(torch.float32)
+    c = torch.minimum((u * num).to(torch.int32), num_i - 1)
+    return _scan_nth(msk, c), num_i, num
+
+
+def _scan_nth(msk, c):
+    mski = msk.to(torch.int32)
+    rank = torch.cumsum(mski, dim=-1) - mski
+    return torch.argmax((msk & (rank == c[..., None])).to(torch.int32), dim=-1)
+
+
+@pytest.mark.parametrize("code", range(1 << tuber.N_LOBES))
+def test_lobe_tables_equal_the_prefix_count(code):
+    """Every mask pattern, with every c from -1 (no lobe) to 4, picks the
+    lobe and counts the lobes as the prefix count does."""
+    c = torch.arange(-1, tuber.N_LOBES, dtype=torch.int32)
+    msk = torch.tensor([bool(code >> k & 1) for k in range(tuber.N_LOBES)]).expand(len(c), -1)
+    packed = tuber.lobe_code(msk)
+    assert packed.tolist() == [code] * len(c)
+    lobe = tuber.nth_lobe(packed, c)
+    np.testing.assert_array_equal(lobe.numpy(), _scan_nth(msk, c).numpy())
+    _, num_i, _ = tuber.pick_lobe(msk, torch.zeros(len(c)))
+    np.testing.assert_array_equal(num_i.numpy(), torch.sum(msk.to(torch.int32), dim=-1).numpy())
+    assert lobe.dtype == num_i.dtype == torch.int32
+
+
+def test_uber_sample_equals_the_prefix_count_pick(zoo, monkeypatch):
+    """``sample`` on the zoo gives bit-equal outputs with the prefix-count
+    pick in place of the table pick, including on lanes with no lobe."""
+    _, ti, wo, _ = _local_dirs(zoo)
+    tbsdf, _ = tmat.fetch_bsdf(zoo[1], ti)
+    u3 = _t(zoo[-1][:, 0:3])
+    assert bool((tbsdf.num_lobes() == 0).any()) and bool((tbsdf.num_lobes() > 1).any())
+    got = tuber.sample(tbsdf, _t(wo), u3)
+    monkeypatch.setattr(tuber, "pick_lobe", _scan_pick)
+    want = tuber.sample(tbsdf, _t(wo), u3)
+    for name in ("wi", "f", "pdf", "valid", "is_specular", "is_transmission"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
 @pytest.mark.parametrize("dist", [jbx.TROWBRIDGE_REITZ, jbx.BECKMANN])
 def test_bxdf_building_blocks_match_jax(dist):
     rng = np.random.default_rng(dist + 3)
